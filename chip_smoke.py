@@ -1,0 +1,371 @@
+#!/usr/bin/env python3
+"""Drives pitchvis_tpu_torch on one NVIDIA GPU and checks it end to end.
+
+    python3 chip_smoke.py
+
+Run from the root of the checkout on a machine with a CUDA card and the CUDA
+toolkit (nvcc). Phases, each of which fails the run on any error:
+
+1. builds the three CUDA kernels of pitchvis_tpu_torch/csrc/ (one nvcc each,
+   in parallel) and prints the build seconds and the card's name and power
+   limit;
+2. holds each kernel against its plain PyTorch version on the card at the
+   main path's shapes (default VqtParameters, B=2048 streams): the VQT in f32
+   and in bf16 within 1e-3 dB, peaks and AGC bit for bit; the f32 VQT within
+   3e-4 dB of the float64 oracle on 8 frames; and times kernel, plain version
+   and, for the VQT, one torch.matmul per group as a yardstick;
+3. runs the main path, StreamingPipeline(2048, path="pallas", fast=True), for
+   16 hops of seeded synthetic audio (sines, noise, one NaN chunk, one silent
+   stream), then 4 hops in f32, checking finite outputs and that each kernel
+   was launched the expected number of times a hop;
+4. replays tests/golden/streaming_golden.npz through the f32 fused path on
+   one stream (spectra atol 1e-3 dB, gains rtol 1e-4).
+
+It prints a JSON line of per-kernel numbers, then the nvidia-smi line, and as
+its last line ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and
+prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+B = 2048
+MAIN_HOPS = 16
+F32_HOPS = 4
+SEED = 0
+
+# NVIDIA H100 SXM data sheet (dense): HBM bytes/s, FFMA and bf16 tensor FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+
+VQT_DB_TOL = 1e-3  # kernel vs plain, same rounded inputs: only the sum order differs
+VQT_REL_TOL = 1e-4  # the same, on power over its frame's maximum (bins under the dB floor too)
+ORACLE_DB_TOL = 3e-4  # f32 VQT vs the float64 oracle (tests/test_golden.py holds <5e-4)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, reps: int = 7, inner: int = 10) -> float:
+    """Median over ``reps`` of CUDA-event time of ``inner`` calls, per call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return float(np.median(times))
+
+
+def bound_ms(bytes_moved: float, ops: float, rate: float) -> tuple[float, str]:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = ops / rate
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def synthetic_audio(torch, n_streams: int, n_samples: int, sr: float, gen) -> "torch.Tensor":
+    """Per stream: two sines at seeded frequencies and amplitudes, plus noise,
+    made on the card from a seeded generator."""
+    dev = "cuda"
+    t = torch.arange(n_samples, device=dev, dtype=torch.float64) / sr
+    f = 55.0 * 2.0 ** (torch.rand((n_streams, 2), generator=gen, device=dev, dtype=torch.float64) * 6.5)
+    amp = torch.rand((n_streams, 2), generator=gen, device=dev, dtype=torch.float64) * 0.4 + 0.02
+    sig = (amp[:, :1] * torch.sin(2 * np.pi * f[:, :1] * t) + amp[:, 1:] * torch.sin(2 * np.pi * f[:, 1:] * t))
+    noise = torch.randn((n_streams, n_samples), generator=gen, device=dev, dtype=torch.float64) * 0.01
+    return (sig + noise).float()
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a CUDA card")
+
+    sys.path.insert(0, ROOT)
+    from pitchvis_tpu_torch import StreamingPipeline, VqtParameters, get_kernel
+    from pitchvis_tpu_torch.models import analysis as analysis_mod
+    from pitchvis_tpu_torch.ops import agc as agc_mod
+    from pitchvis_tpu_torch.ops import peaks_pallas as peaks_mod
+    from pitchvis_tpu_torch.ops import vqt_pallas as vqt_mod
+    from pitchvis_tpu_torch.ops.vqt import power_to_db
+    from pitchvis_tpu_torch.ops.vqt_ref import vqt_frame_db_np
+    from pitchvis_tpu_torch.stream.ring import ring_push, ring_window
+    from pitchvis_tpu_torch.utils import nvcc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = "cuda"
+    name = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+
+    # ---- 1. build ----------------------------------------------------------
+    t0 = time.perf_counter()
+    build_s = nvcc.build_all()
+    print(f"build: {json.dumps(build_s)} wall {time.perf_counter() - t0:.2f} s")
+    for src, log in nvcc.build_logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {src}: {line.strip()}")
+    smi = nvidia_smi_line()
+    print(f"card: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+
+    def reset_counts():
+        vqt_mod.launches = 0
+        peaks_mod.launches = 0
+        agc_mod.launches = 0
+
+    def counts():
+        return {"vqt": vqt_mod.launches, "peaks": peaks_mod.launches, "agc": agc_mod.launches}
+
+    # ---- 2. kernels against their plain versions ----------------------------
+    params = VqtParameters()
+    kernel = get_kernel(params)
+    sr = params.sr
+    hop = int(sr / 60)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    frames = synthetic_audio(torch, B, params.n_fft, sr, gen)
+    kernels = {}
+
+    for label, dtype, rate, replaces in (
+        ("vqt_power_f32", torch.float32, F32_FLOPS, "pitchvis_tpu/ops/vqt_pallas.py:311"),
+        ("vqt_power_bf16", torch.bfloat16, BF16_FLOPS, "pitchvis_tpu/ops/vqt_pallas.py:291"),
+    ):
+        arrays = vqt_mod.PallasVqtArrays.from_kernel(kernel, dtype=dtype, device=dev)
+        got = vqt_mod.vqt_power_pallas(arrays, frames)
+        want = vqt_mod.vqt_power_pallas_plain(arrays, frames)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"{label}: non-finite power")
+        err_db = float((power_to_db(got) - power_to_db(want)).abs().max())
+        rel = float(((got - want).abs() / want.amax(dim=1, keepdim=True)).max())
+        print(f"{label}: max |dB| vs plain {err_db:.3e} (tol {VQT_DB_TOL}), "
+              f"max power err / frame max {rel:.3e} (tol {VQT_REL_TOL})")
+        check(err_db <= VQT_DB_TOL, f"{label}: {err_db} dB from its plain version")
+        check(rel <= VQT_REL_TOL, f"{label}: power {rel} of its frame's maximum from its plain version")
+
+        tail = frames[:, params.n_fft - arrays.tail :]
+        xs = tail.to(dtype)
+
+        def library_call(arrays=arrays, xs=xs):
+            for w, off, size in zip(arrays.weights, arrays.offsets, arrays.window_sizes):
+                torch.matmul(xs[:, off : off + size], w)
+
+        ms = time_ms(torch, lambda: vqt_mod.vqt_power_pallas(arrays, frames))
+        plain_ms = time_ms(torch, lambda: vqt_mod.vqt_power_pallas_plain(arrays, frames), reps=5, inner=3)
+        lib_ms = time_ms(torch, library_call)
+        itemsize = torch.tensor([], dtype=dtype).element_size()
+        w_bytes = sum(w.numel() * itemsize for w in arrays.weights)
+        moved = B * arrays.tail * itemsize + w_bytes + B * arrays.n_buckets * 4
+        ops = 2.0 * B * sum(size * 2 * nf for size, nf in zip(arrays.window_sizes, arrays.nf))
+        b_ms, b_by = bound_ms(moved, ops, rate)
+        print(f"{label}: {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul per group {lib_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}; {ops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB)")
+        kernels[label] = dict(
+            name=label, route="cuda", source="pitchvis_tpu_torch/csrc/vqt.cu", replaces=replaces,
+            max_abs_err=err_db, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        )
+        if dtype == torch.float32:
+            x8 = frames[:8].cpu().numpy()
+            oracle = np.stack([vqt_frame_db_np(kernel, x8[i].astype(np.float64)) for i in range(8)])
+            err_oracle = float(np.abs(power_to_db(got[:8]).cpu().numpy() - oracle).max())
+            print(f"{label}: max |dB| vs float64 oracle on 8 frames {err_oracle:.3e} (tol {ORACLE_DB_TOL})")
+            check(err_oracle <= ORACLE_DB_TOL, f"f32 VQT {err_oracle} dB from the oracle")
+        del arrays, xs, got, want
+
+    # the short final K-tile: window sizes that are no multiple of the tile
+    rng = np.random.default_rng(SEED)
+    ws, offs, nfp = [], [], []
+    sizes, nfs, tail_len = (1536, 1100, 700), (7, 130, 3), 1536
+    for size, f in zip(sizes, nfs):
+        fp = -(-f // 128) * 128
+        w = np.zeros((size, 2 * fp), np.float32)
+        w[:, :f] = rng.standard_normal((size, f)) * 0.01
+        w[:, fp : fp + f] = rng.standard_normal((size, f)) * 0.01
+        ws.append(torch.from_numpy(w).to(dev))
+        offs.append(tail_len - size)
+        nfp.append(fp)
+    ragged = vqt_mod.PallasVqtArrays(tuple(ws), tuple(offs), sizes, nfs, tuple(nfp), tail_len, tail_len, sum(nfs))
+    xr = torch.from_numpy((rng.standard_normal((5, tail_len)) * 0.3).astype(np.float32)).to(dev)
+    want64 = []
+    for w, off, size, f, fp in zip(ws, offs, sizes, nfs, nfp):
+        y = xr[:, off : off + size].double() @ w.double()
+        want64.append(y[:, :f] ** 2 + y[:, fp : fp + f] ** 2)
+    want64 = torch.cat(want64, 1)
+    got = vqt_mod.vqt_power_pallas(ragged, xr).double()
+    rel = float(((got - want64).abs() / want64.abs().clamp_min(1e-12)).max())
+    print(f"vqt ragged K-tiles (sizes {sizes}): max rel err vs float64 {rel:.3e} (tol 2e-4)")
+    check(rel <= 2e-4, "VQT kernel with a short final K-tile disagrees")
+
+    # peaks: real VQT spectra (as the main path feeds it), and plateaus
+    spectra = power_to_db(vqt_mod.vqt_power_pallas(
+        vqt_mod.PallasVqtArrays.from_kernel(kernel, dtype=torch.bfloat16, device=dev), frames))
+    walk = torch.from_numpy(np.round(np.cumsum(rng.standard_normal((B, params.n_buckets)), 1)).astype(np.float32)).to(dev)
+    peak_err = 0.0
+    for label, xs in (("vqt spectra", spectra), ("rounded random walk", walk)):
+        m_k, p_k = peaks_mod.local_maxima_and_prominences(xs)
+        m_p, p_p = peaks_mod.local_maxima_and_prominences_plain(xs)
+        same = bool(torch.equal(m_k, m_p)) and bool(torch.equal(p_k, p_p))
+        peak_err = max(peak_err, float((p_k - p_p).abs().max()))
+        print(f"peaks on {label}: masks and prominences equal: {same} "
+              f"({int(m_k.sum())} local maxima)")
+        check(same, f"peaks kernel differs from its plain version on {label}")
+    n = params.n_buckets
+    ms = time_ms(torch, lambda: peaks_mod.local_maxima_and_prominences(spectra))
+    plain_ms = time_ms(torch, lambda: peaks_mod.local_maxima_and_prominences_plain(spectra), reps=3, inner=1)
+    # what the function cannot avoid: read the spectrum once, write the mask
+    # (1 byte) and the prominence (4 bytes) once, and at least one compare a
+    # bin (one op an instruction, where the FFMA rate counts two)
+    b_ms, b_by = bound_ms(B * n * 4 + B * n * 5, float(B) * n, F32_FLOPS / 2)
+    print(f"peaks: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    kernels["peaks"] = dict(
+        name="peaks", route="cuda", source="pitchvis_tpu_torch/csrc/peaks.cu",
+        replaces="pitchvis_tpu/ops/peaks_pallas.py:112", max_abs_err=peak_err, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+
+    # AGC at one hop of samples
+    chunk = synthetic_audio(torch, B, hop, sr, gen)
+    gain = torch.rand(B, generator=gen, device=dev) * 2.0 + 0.1
+    g_k, o_k = agc_mod.agc_chunk(gain, chunk)
+    g_p, o_p = agc_mod.agc_chunk_plain(gain, chunk)
+    same = bool(torch.equal(g_k, g_p)) and bool(torch.equal(o_k, o_p))
+    agc_err = max(float((g_k - g_p).abs().max()), float((o_k - o_p).abs().max()))
+    print(f"agc: gains and samples equal to the plain version: {same}")
+    check(same, "AGC kernel differs from its plain version")
+    ms = time_ms(torch, lambda: agc_mod.agc_chunk(gain, chunk))
+    plain_ms = time_ms(torch, lambda: agc_mod.agc_chunk_plain(gain, chunk), reps=3, inner=1)
+    b_ms, b_by = bound_ms(2 * B * hop * 4 + 2 * B * 4, 8.0 * B * hop, F32_FLOPS)
+    print(f"agc: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    kernels["agc"] = dict(
+        name="agc", route="cuda", source="pitchvis_tpu_torch/csrc/agc.cu",
+        replaces="pitchvis_tpu/ops/agc.py:62", max_abs_err=agc_err, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+    del frames, spectra, walk
+    torch.cuda.empty_cache()
+
+    # ---- 3. the main path ----------------------------------------------------
+    dt = hop / sr
+    audio = synthetic_audio(torch, B, (MAIN_HOPS + F32_HOPS) * hop, sr, gen)
+    audio[7] = 0.0  # one silent stream: its gain must stay frozen at 1
+    audio[5, 3 * hop + 11] = float("nan")  # one NaN chunk: stream 5, hop 3
+
+    def drive(pipe, first_hop, n_hops, label):
+        reset_counts()
+        hop_ms = []
+        outs = None
+        for h in range(first_hop, first_hop + n_hops):
+            chunk = audio[:, h * hop : (h + 1) * hop]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            outs = pipe.step(chunk, dt)
+            torch.cuda.synchronize()
+            hop_ms.append((time.perf_counter() - t) * 1e3)
+            for leaf in (outs.x_vqt, outs.gain, outs.analysis.x_vqt_smoothed, outs.analysis.calmness,
+                         outs.analysis.peak_size, outs.analysis.scene_calmness, outs.analysis.tuning_inaccuracy):
+                check(bool(torch.isfinite(leaf).all()), f"{label}: non-finite output at hop {h}")
+        c = counts()
+        steady = float(np.median(hop_ms[1:])) if n_hops > 1 else hop_ms[0]
+        print(f"{label}: {n_hops} hops at B={B}, hop ms first {hop_ms[0]:.2f}, median after {steady:.3f}, "
+              f"aggregate realtime {B * dt * 1e3 / steady:.1f}x, launches {c}")
+        want = {"vqt": n_hops, "peaks": 2 * n_hops, "agc": n_hops}
+        check(c == want, f"{label}: launches {c}, expected {want}")
+        return outs, c, steady
+
+    torch.cuda.reset_peak_memory_stats()
+    pipe = StreamingPipeline(B, params, path="pallas", fast=True, device=dev)
+    outs, main_counts, main_ms = drive(pipe, 0, MAIN_HOPS, "main path (bf16)")
+    check(float(pipe.state.ring.gain[7]) == 1.0, "silent stream's gain moved")
+    check(int(outs.analysis.peaks.sum()) > 0, "main path found no peaks")
+    print(f"main path: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"{float(outs.analysis.peaks.float().sum(1).mean()):.1f} peaks per stream")
+
+    # where the hop's time goes, by stage (CUDA events; not counted as the path)
+    stage = {"ring_push (agc)": [], "vqt + dB": [], "analysis (peaks x2)": []}
+    state = pipe.state
+    for h in range(4):
+        chunk = audio[:, (MAIN_HOPS + h) * hop : (MAIN_HOPS + h + 1) * hop]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        ring = ring_push(state.ring, chunk, pipe.agc_params)
+        ev[1].record()
+        x_vqt = vqt_mod.vqt_db_pallas(pipe.arrays, ring_window(ring, params.n_fft))
+        ev[2].record()
+        analysis_mod.analysis_step_batch(pipe.analysis_params, params.range, state.analysis, x_vqt, dt)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i, key in enumerate(stage):
+            stage[key].append(ev[i].elapsed_time(ev[i + 1]))
+    print("stage ms (median of 4 hops): " + json.dumps({k: round(float(np.median(v)), 4) for k, v in stage.items()}))
+    del pipe, outs, state, ring, x_vqt
+    torch.cuda.empty_cache()
+
+    pipe = StreamingPipeline(B, params, path="pallas", fast=False, device=dev)
+    _, f32_counts, _ = drive(pipe, 0, F32_HOPS, "f32 path")
+    del pipe
+    torch.cuda.empty_cache()
+    kernels["vqt_power_bf16"]["launches"] = main_counts["vqt"]
+    kernels["vqt_power_f32"]["launches"] = f32_counts["vqt"]
+    kernels["peaks"]["launches"] = main_counts["peaks"]
+    kernels["agc"]["launches"] = main_counts["agc"]
+
+    # ---- 4. streaming golden ---------------------------------------------------
+    with np.load(os.path.join(ROOT, "tests", "golden", "streaming_golden.npz")) as z:
+        sig, g_hop, want_spectra, want_gains = z["signal"], int(z["hop"]), z["spectra"], z["gains"]
+    reset_counts()
+    pipe = StreamingPipeline(1, params, path="pallas", fast=False, device=dev)
+    spectra, gains = [], []
+    n_hops = len(sig) // g_hop
+    for i in range(n_hops):
+        out = pipe.step(sig[None, i * g_hop : (i + 1) * g_hop], g_hop / params.sr)
+        spectra.append(out.x_vqt[0])
+        gains.append(out.gain[0])
+    spectra = torch.stack(spectra).cpu().numpy()
+    gains = torch.stack(gains).cpu().numpy()
+    err_s = float(np.abs(spectra - want_spectra).max())
+    err_g = float(np.abs(gains / want_gains - 1).max())
+    print(f"streaming golden: {n_hops} hops, max |dB| {err_s:.3e} (tol 1e-3), max gain rel err {err_g:.3e} "
+          f"(tol 1e-4), launches {counts()}")
+    check(err_s <= 1e-3 and err_g <= 1e-4, "streaming golden replay out of tolerance")
+    check(counts() == {"vqt": n_hops, "peaks": 2 * n_hops, "agc": n_hops}, "golden replay skipped a kernel")
+
+    order = ("vqt_power_bf16", "vqt_power_f32", "peaks", "agc")
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: kernels[n][k] for k in keys} for n in order]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,79 @@
+"""pitchvis_tpu_torch: the PyTorch/CUDA port of pitchvis_tpu.
+
+The streaming hop (ring + AGC -> fused VQT -> analysis) runs on an NVIDIA
+H100 through three hand-written CUDA kernels (csrc/: VQT, peak primitives,
+AGC), each with a plain PyTorch version that runs for CPU tensors. Entry
+points run on the card unless given ``device="cpu"``. The package imports
+nothing of the JAX package; the modules it needs from there are copied.
+"""
+
+from .core.config import (
+    AgcParameters,
+    AnalysisParameters,
+    ColorParameters,
+    PeakDetectionParameters,
+    VqtParameters,
+    VqtRange,
+)
+from .core.errors import AboveNyquistError, VqtError, WindowExceedsNFftError
+from .kernel.builder import VqtKernel, build_kernel, get_kernel, kernel_stats
+from .models.analysis import (
+    AnalysisOutputs,
+    AnalysisState,
+    analysis_step_batch,
+    init_state_batch,
+)
+from .models.pipeline import (
+    PipelineOutputs,
+    PipelineState,
+    StreamingPipeline,
+    init_pipeline_state,
+    pipeline_step,
+    pipeline_step_multi,
+)
+from .ops.vqt import (
+    Vqt,
+    VqtArrays,
+    make_vqt_arrays,
+    power_to_db,
+    vqt_db_auto,
+    vqt_db_batch,
+    vqt_power_batch,
+)
+from .ops.vqt_pallas import PallasVqtArrays, vqt_db_pallas, vqt_power_pallas
+
+__all__ = [
+    "AgcParameters",
+    "AnalysisParameters",
+    "ColorParameters",
+    "PeakDetectionParameters",
+    "VqtParameters",
+    "VqtRange",
+    "VqtError",
+    "AboveNyquistError",
+    "WindowExceedsNFftError",
+    "VqtKernel",
+    "build_kernel",
+    "get_kernel",
+    "kernel_stats",
+    "AnalysisOutputs",
+    "AnalysisState",
+    "analysis_step_batch",
+    "init_state_batch",
+    "PipelineOutputs",
+    "PipelineState",
+    "StreamingPipeline",
+    "init_pipeline_state",
+    "pipeline_step",
+    "pipeline_step_multi",
+    "Vqt",
+    "VqtArrays",
+    "make_vqt_arrays",
+    "power_to_db",
+    "vqt_db_auto",
+    "vqt_db_batch",
+    "vqt_power_batch",
+    "PallasVqtArrays",
+    "vqt_db_pallas",
+    "vqt_power_pallas",
+]

@@ -1,0 +1,97 @@
+"""Carrying weights and state across from the JAX package, as NumPy arrays.
+
+Nothing here imports JAX: the caller hands over ``np.asarray`` of the JAX
+package's arrays (a bf16 array arrives as NumPy's ``bfloat16`` extension
+dtype and is reinterpreted bit for bit). With these a test starts both
+packages from the same weights and the same mid-stream state.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.analysis import AnalysisState
+from .models.pipeline import PipelineState
+from .ops.vqt import VqtArrays
+from .ops.vqt_pallas import PallasVqtArrays
+from .stream.ring import RingState
+
+ANALYSIS_LEAVES = (
+    "x_vqt_smoothed",
+    "x_vqt_afterglow",
+    "calmness",
+    "released_note_calmness",
+    "scene_calmness",
+    "tuning_inaccuracy",
+)
+
+
+def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+    """numpy -> torch on ``device``; bfloat16 arrays keep their bits."""
+    a = np.array(a, copy=True, order="C")  # JAX hands out read-only views
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """torch -> numpy; bfloat16 comes back as float32 (exact)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def vqt_arrays_from_numpy(
+    w_time, windows, n_filters, n_fft: int, n_buckets: int, device="cpu"
+) -> VqtArrays:
+    """The ``time`` path's weights: ``w_time`` per group (window, 2*nf)."""
+    return VqtArrays(
+        w_time=tuple(tensor_from_numpy(w, device) for w in w_time),
+        windows=tuple(tuple(int(v) for v in win) for win in windows),
+        n_filters=tuple(int(f) for f in n_filters),
+        n_fft=int(n_fft),
+        n_buckets=int(n_buckets),
+    )
+
+
+def pallas_vqt_arrays_from_numpy(
+    weights, offsets, window_sizes, nf, nf_pad, tail: int, n_fft: int, n_buckets: int,
+    device="cpu",
+) -> PallasVqtArrays:
+    """The fused kernel's padded per-group weights and geometry."""
+    return PallasVqtArrays(
+        weights=tuple(tensor_from_numpy(w, device) for w in weights),
+        offsets=tuple(int(v) for v in offsets),
+        window_sizes=tuple(int(v) for v in window_sizes),
+        nf=tuple(int(v) for v in nf),
+        nf_pad=tuple(int(v) for v in nf_pad),
+        tail=int(tail),
+        n_fft=int(n_fft),
+        n_buckets=int(n_buckets),
+    )
+
+
+def pipeline_state_from_numpy(arrays: dict, device="cpu") -> PipelineState:
+    """``arrays``: "buffer" (B, L), "gain" (B,) and the six analysis leaves
+    (ANALYSIS_LEAVES) with their leading stream axis."""
+    return PipelineState(
+        ring=RingState(
+            buffer=tensor_from_numpy(arrays["buffer"], device).float(),
+            gain=tensor_from_numpy(arrays["gain"], device).float(),
+        ),
+        analysis=AnalysisState(
+            **{k: tensor_from_numpy(arrays[k], device).float() for k in ANALYSIS_LEAVES}
+        ),
+    )
+
+
+def pipeline_state_to_numpy(state: PipelineState) -> dict:
+    out = {
+        "buffer": tensor_to_numpy(state.ring.buffer),
+        "gain": tensor_to_numpy(state.ring.gain),
+    }
+    for k in ANALYSIS_LEAVES:
+        out[k] = tensor_to_numpy(getattr(state.analysis, k))
+    return out

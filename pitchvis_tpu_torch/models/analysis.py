@@ -1,0 +1,342 @@
+"""The per-frame analysis chain, batched over streams.
+
+Port of ``pitchvis_tpu/models/analysis.py``: `AnalysisState::preprocess`
+(pitchvis_analysis/src/analysis.rs:288-404) and its modules: calmness
+(analysis_modules/calmness.rs), afterglow + peak filter
+(analysis_modules/afterglow.rs), pitch accuracy / tuning
+(analysis_modules/pitch_analysis.rs). Where the JAX package vmaps a
+per-frame step, every function here carries the stream axis first: state
+tensors are (B, n) per-bin or (B,) per-stream.
+
+The local maxima and prominences of the smoothed and of the raw spectrum
+come from the peaks kernel (ops/peaks_pallas.py), two launches a hop; the
+``min_height`` prefilter of the JAX package's ``prominences_compact`` is
+applied as a mask, which gives the same peak masks, because
+``find_peaks_mask`` reads prominence only at local maxima at or above its
+config's ``min_height``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..core.config import AnalysisParameters, VqtRange
+from ..ops.peaks import (
+    _NEG,
+    _shift,
+    enhance_peaks_continuous,
+    find_peaks_mask,
+    promote_bass_peaks,
+)
+from ..ops.peaks_pallas import local_maxima_and_prominences
+from ..utils.ema import ema_update
+from ..utils.rounding import rust_round
+
+
+@dataclass
+class AnalysisState:
+    """Carry state of the analysis chain (analysis.rs:119-177), batched:
+    per-bin leaves are (B, n) f32, per-stream scalars (B,) f32."""
+
+    x_vqt_smoothed: torch.Tensor
+    x_vqt_afterglow: torch.Tensor
+    calmness: torch.Tensor
+    released_note_calmness: torch.Tensor
+    scene_calmness: torch.Tensor
+    tuning_inaccuracy: torch.Tensor
+
+
+@dataclass
+class AnalysisOutputs:
+    """Per-frame outputs consumed by display / serial / ML stages."""
+
+    x_vqt_smoothed: torch.Tensor
+    x_vqt_peakfiltered: torch.Tensor
+    x_vqt_afterglow: torch.Tensor
+    peaks: torch.Tensor  # bool mask of discrete peaks
+    peak_center: torch.Tensor  # continuous center per peak bin (frac bins)
+    peak_size: torch.Tensor  # continuous (bass-promoted) size per peak bin, dB
+    calmness: torch.Tensor
+    pitch_accuracy: torch.Tensor
+    pitch_deviation: torch.Tensor
+    scene_calmness: torch.Tensor  # (B,)
+    tuning_inaccuracy: torch.Tensor  # (B,), cents
+
+
+def init_state_batch(n_streams: int, n_buckets: int, device="cpu") -> AnalysisState:
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    return AnalysisState(
+        x_vqt_smoothed=z(n_streams, n_buckets),
+        x_vqt_afterglow=z(n_streams, n_buckets),
+        calmness=z(n_streams, n_buckets),
+        released_note_calmness=z(n_streams, n_buckets),
+        scene_calmness=z(n_streams),
+        tuning_inaccuracy=z(n_streams),
+    )
+
+
+def _smoothing_horizons(
+    params: AnalysisParameters, rng: VqtRange, scene_calmness: torch.Tensor
+) -> torch.Tensor:
+    """Per-bin EMA horizons in seconds (analysis.rs:196-208, 291-323):
+    base * frequency multiplier (1.5 bass -> 1.0 treble) * calmness
+    multiplier (0.6 energetic -> 2.0 calm), truncated to whole ms like the
+    reference's Duration::from_millis(duration_ms as u64). base == 0 means
+    passthrough (horizon 0). scene_calmness: (B,) -> (B, n)."""
+    n = rng.n_buckets
+    device = scene_calmness.device
+    octave_fraction = torch.arange(n, dtype=torch.float32, device=device) / (
+        rng.buckets_per_octave * rng.octaves
+    )
+    freq_mult = 1.5 - 0.5 * octave_fraction
+    calm_mult = params.vqt_smoothing_calmness_min + (
+        params.vqt_smoothing_calmness_max - params.vqt_smoothing_calmness_min
+    ) * scene_calmness
+    base_ms = params.vqt_smoothing_duration_base * 1000.0
+    horizon_ms = torch.floor(base_ms * freq_mult * calm_mult[:, None])
+    if base_ms > 0.0:
+        return horizon_ms / 1000.0
+    return torch.zeros_like(horizon_ms)
+
+
+def _update_calmness(
+    params: AnalysisParameters,
+    rng: VqtRange,
+    x_vqt: torch.Tensor,
+    x_smoothed: torch.Tensor,
+    dt: torch.Tensor,
+    calmness: torch.Tensor,
+    released: torch.Tensor,
+    scene: torch.Tensor,
+    precomputed_raw: tuple[torch.Tensor, torch.Tensor],
+):
+    """Per-bin + scene calmness (calmness.rs:23-95): bins within ~+-30 ct of
+    an *unsmoothed*-VQT peak EMA toward 1, others toward 0; released-note
+    shadow contributes at 30% weight; amplitude(power)-weighted scene average
+    EMA'd; holds in silence. dt: (B, 1)."""
+    radius = rng.buckets_per_octave // 12 // 3
+
+    peak_mask = find_peaks_mask(
+        x_vqt,
+        params.peak_config,
+        rng.buckets_per_octave,
+        precomputed=precomputed_raw,
+        suppress_iterations=params.suppress_iterations,
+    )
+
+    # dilate: bin i is "around" a peak p iff i in [p - radius, p + radius),
+    # i.e. there is a peak at i + delta for delta in [-radius+1, radius]
+    # (calmness.rs:41-47)
+    around = peak_mask
+    for delta in range(-radius + 1, radius + 1):
+        if delta != 0:
+            around = around | _shift(peak_mask, delta, False)
+
+    zero = torch.zeros((), dtype=torch.float32, device=x_vqt.device)
+    horizon = params.note_calmness_smoothing_duration
+    calm_up = ema_update(calmness, 1.0, dt, horizon)
+    calm_down = ema_update(calmness, 0.0, dt, horizon)
+    new_calm = torch.where(around, calm_up, calm_down)
+    # active bins sync the released shadow; inactive bins decay it
+    new_released = torch.where(around, calm_up, ema_update(released, 0.0, dt, horizon))
+
+    amp_power = torch.pow(10.0, x_smoothed / 10.0)
+    w_active = torch.where(around, amp_power, zero)
+    rel_contrib = torch.where(~around & (new_released > 0.01), new_released, zero)
+    # the released weight is SELF-weighted — faithful to calmness.rs:79-83,
+    # quirk included
+    w_released = rel_contrib * 0.3
+
+    weighted = (new_calm * w_active).sum(-1) + (rel_contrib * w_released).sum(-1)
+    wsum = w_active.sum(-1) + w_released.sum(-1)
+
+    target = weighted / torch.clamp_min(wsum, 1e-30)
+    new_scene = torch.where(
+        wsum > 0.0,
+        ema_update(scene, target, dt[:, 0], params.scene_calmness_smoothing_duration),
+        scene,  # silence: hold (calmness.rs:92-95)
+    )
+    return new_calm, new_released, new_scene
+
+
+def _update_afterglow(afterglow: torch.Tensor, x_smoothed: torch.Tensor) -> torch.Tensor:
+    """x *= 0.85 - 0.15*(i/n), floored at the smoothed value
+    (afterglow.rs:10-21)."""
+    n = afterglow.shape[-1]
+    decay = 0.85 - 0.15 * (torch.arange(n, dtype=torch.float32, device=afterglow.device) / n)
+    return torch.maximum(afterglow * decay, x_smoothed)
+
+
+def _pitch_accuracy_deviation(
+    peak_mask: torch.Tensor, center: torch.Tensor, buckets_per_octave: int
+):
+    """Per-peak deviation from the nearest semitone, written at the rounded
+    center bin (pitch_analysis.rs:12-42)."""
+    n = peak_mask.shape[-1]
+    idx = torch.arange(n, device=center.device)
+    zero = torch.zeros((), dtype=torch.float32, device=center.device)
+    c_semi = center * 12.0 / buckets_per_octave
+    # rust_round: a two-bin plateau's parabola center is exactly i+0.5, where
+    # half-to-even would flip the write bin and the deviation sign
+    deviation = c_semi - rust_round(c_semi)
+    accuracy = torch.clamp_min(1.0 - 2.0 * deviation.abs(), 0.0)
+
+    # the rounded center is within one bin of the peak bin: three shifts
+    rel = torch.clamp(rust_round(center).to(torch.int32), 0, n - 1) - idx
+    acc_out = torch.zeros_like(center)
+    dev_out = torch.zeros_like(center)
+    for r in (-1, 0, 1):
+        write = peak_mask & (rel == r)
+        # target position t receives from source i = t - r
+        m = _shift(write, -r, False)
+        acc_out = torch.where(m, _shift(torch.where(write, accuracy, zero), -r, 0.0), acc_out)
+        dev_out = torch.where(m, _shift(torch.where(write, deviation, zero), -r, 0.0), dev_out)
+    return acc_out, dev_out
+
+
+def _update_tuning_inaccuracy(
+    params: AnalysisParameters,
+    peak_mask: torch.Tensor,
+    center: torch.Tensor,
+    size: torch.Tensor,
+    buckets_per_octave: int,
+    dt: torch.Tensor,
+    tuning: torch.Tensor,
+) -> torch.Tensor:
+    """Power-weighted mean |cents| drift, EMA'd (pitch_analysis.rs:48-75)."""
+    zero = torch.zeros((), dtype=torch.float32, device=size.device)
+    power = torch.where(peak_mask, torch.pow(10.0, size / 10.0), zero)
+    c_semi = center * 12.0 / buckets_per_octave
+    drift = (c_semi - rust_round(c_semi)).abs()
+    power_sum = power.sum(-1)
+    avg = torch.where(
+        power_sum > 0.0, (drift * power).sum(-1) / torch.clamp_min(power_sum, 1e-30), zero
+    )
+    return ema_update(tuning, 100.0 * avg, dt[:, 0], params.tuning_inaccuracy_smoothing_duration)
+
+
+def _analysis_core(
+    params: AnalysisParameters,
+    rng: VqtRange,
+    state: AnalysisState,
+    x_vqt: torch.Tensor,
+    dt: torch.Tensor,
+    x_smoothed: torch.Tensor,
+    pre: tuple[torch.Tensor, torch.Tensor],
+    pre_raw: tuple[torch.Tensor, torch.Tensor],
+) -> tuple[AnalysisState, AnalysisOutputs]:
+    """Steps 2-6 of the analysis chain, given the smoothed spectrum and the
+    (local maxima, prominences) pairs of the smoothed and raw spectra."""
+    n = rng.n_buckets
+    idx = torch.arange(n, device=x_vqt.device)
+    zero = torch.zeros((), dtype=torch.float32, device=x_vqt.device)
+
+    # 2. discrete peaks: bassline config at/below highest_bassnote, general
+    # config above (analysis.rs:331-349); highest_bassnote is compared with
+    # raw bin indices, faithfully to analysis.rs:338/346
+    bass_mask = find_peaks_mask(
+        x_smoothed, params.bassline_peak_config, rng.buckets_per_octave,
+        precomputed=pre, suppress_iterations=params.suppress_iterations,
+    )
+    gen_mask = find_peaks_mask(
+        x_smoothed, params.peak_config, rng.buckets_per_octave,
+        precomputed=pre, suppress_iterations=params.suppress_iterations,
+    )
+    peaks = (bass_mask & (idx <= params.highest_bassnote)) | (
+        gen_mask & (idx > params.highest_bassnote)
+    )
+
+    # 3. continuous peak refinement + bass harmonic promotion
+    center, size = enhance_peaks_continuous(peaks, x_smoothed, rng)
+    size = promote_bass_peaks(
+        peaks, center, size, x_smoothed, rng, params.highest_bassnote, params.harmonic_threshold
+    )
+
+    # 4. peak filter + afterglow
+    x_peakfiltered = torch.where(peaks, x_smoothed, zero)
+    afterglow = _update_afterglow(state.x_vqt_afterglow, x_smoothed)
+
+    # 5. calmness (peaks from the *unsmoothed* spectrum)
+    calm, released, scene = _update_calmness(
+        params, rng, x_vqt, x_smoothed, dt,
+        state.calmness, state.released_note_calmness, state.scene_calmness,
+        precomputed_raw=pre_raw,
+    )
+
+    # 6. tuning inaccuracy + per-bin pitch accuracy/deviation
+    tuning = _update_tuning_inaccuracy(
+        params, peaks, center, size, rng.buckets_per_octave, dt, state.tuning_inaccuracy
+    )
+    accuracy, deviation = _pitch_accuracy_deviation(peaks, center, rng.buckets_per_octave)
+
+    new_state = AnalysisState(
+        x_vqt_smoothed=x_smoothed,
+        x_vqt_afterglow=afterglow,
+        calmness=calm,
+        released_note_calmness=released,
+        scene_calmness=scene,
+        tuning_inaccuracy=tuning,
+    )
+    outputs = AnalysisOutputs(
+        x_vqt_smoothed=x_smoothed,
+        x_vqt_peakfiltered=x_peakfiltered,
+        x_vqt_afterglow=afterglow,
+        peaks=peaks,
+        peak_center=torch.where(peaks, center, zero),
+        peak_size=torch.where(peaks, size, zero),
+        calmness=calm,
+        pitch_accuracy=accuracy,
+        pitch_deviation=deviation,
+        scene_calmness=scene,
+        tuning_inaccuracy=tuning,
+    )
+    return new_state, outputs
+
+
+def _min_heights(params: AnalysisParameters) -> tuple[float, float]:
+    """(smoothed-spectrum prefilter, raw-spectrum prefilter): prominences are
+    only read at candidates above these heights (calmness peaks use only the
+    general config, calmness.rs:30)."""
+    return (
+        min(params.peak_config.min_height, params.bassline_peak_config.min_height),
+        params.peak_config.min_height,
+    )
+
+
+def _peak_primitives(x: torch.Tensor, min_height: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(local maxima, prominences) from the peaks kernel, with prominence
+    kept only at local maxima at or above ``min_height`` — the values of the
+    JAX package's ``prominences_compact(x, lmax, min_height)``."""
+    lmax, prom = local_maxima_and_prominences(x)
+    neg = torch.tensor(_NEG, dtype=prom.dtype, device=prom.device)
+    return lmax, torch.where(lmax & (x >= min_height), prom, neg)
+
+
+def analysis_step_batch(
+    params: AnalysisParameters,
+    rng: VqtRange,
+    state: AnalysisState,
+    x_vqt: torch.Tensor,
+    dt,
+) -> tuple[AnalysisState, AnalysisOutputs]:
+    """One frame of the analysis chain (analysis.rs:288-404) for every
+    stream: ``x_vqt`` is (B, n_buckets) dB spectra, ``dt`` the frame time in
+    seconds, a scalar or (B,)."""
+    b, n = x_vqt.shape
+    if n != rng.n_buckets:
+        raise ValueError(f"x_vqt has {n} bins, the range {rng.n_buckets}")
+    dt_b = torch.as_tensor(dt, dtype=torch.float32, device=x_vqt.device).expand(b)
+    dt_col = dt_b[:, None]
+
+    # step 1: calmness- and frequency-adaptive EMA smoothing
+    horizons = _smoothing_horizons(params, rng, state.scene_calmness)
+    x_smoothed = ema_update(state.x_vqt_smoothed, x_vqt, dt_col, horizons)
+
+    min_h, min_h_raw = _min_heights(params)
+    pre = _peak_primitives(x_smoothed, min_h)
+    pre_raw = _peak_primitives(x_vqt, min_h_raw)
+    return _analysis_core(params, rng, state, x_vqt, dt_col, x_smoothed, pre, pre_raw)

@@ -1,0 +1,118 @@
+"""Builds the hand-written CUDA kernels of ``pitchvis_tpu_torch/csrc/`` and
+loads them through ctypes.
+
+Each ``csrc/<name>.cu`` exports plain C functions and is compiled by ``nvcc``
+into its own shared library under ``build/pitchvis_tpu_torch/`` at the root
+of the checkout (listed in .gitignore), at first use. The library's file
+name carries a hash of its source and flags, so an edited source is never
+served from a stale build. :func:`build_all` starts one ``nvcc`` per source
+at once and waits for all of them; :func:`library` builds one on demand.
+
+Nothing here runs at import time: this module is imported on hosts with no
+CUDA toolkit, where only the kernels' plain PyTorch versions run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "pitchvis_tpu_torch")
+
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# per-source extra flags
+EXTRA_FLAGS: dict[str, list[str]] = {
+    "vqt": [],
+    "peaks": [],
+    # the AGC recurrence spells out each fused multiply-add it wants with
+    # __fmaf_rn and each plain rounding with __fmul_rn/__fadd_rn; no other
+    # contraction may change its bits
+    "agc": ["-fmad=false"],
+}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+# compiler output of each build (ptxas register/shared-memory report)
+build_logs: dict[str, str] = {}
+
+
+def nvcc_path() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels of "
+            "pitchvis_tpu_torch are built from source at first use"
+        )
+    return path
+
+
+def _target(name: str) -> tuple[str, list[str]]:
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    with open(src, "rb") as f:
+        text = f.read()
+    flags = ARCH_FLAGS + BASE_FLAGS + EXTRA_FLAGS[name]
+    digest = hashlib.sha1(text + " ".join(flags).encode()).hexdigest()[:12]
+    out = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    return out, [nvcc_path(), *flags, "-o", out, src]
+
+
+def build_all(names=None) -> dict[str, float]:
+    """Compiles every named source (default: all of EXTRA_FLAGS) with one
+    nvcc process each, all started together. Returns seconds per source
+    (0.0 for a library that was already built). Raises on any failure."""
+    names = list(names or EXTRA_FLAGS)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    seconds = {}
+    for name in names:
+        out, cmd = _target(name)
+        if os.path.exists(out):
+            seconds[name] = 0.0
+            continue
+        tmp_out = f"{out}.{os.getpid()}.tmp"
+        cmd = [*cmd[:-3], "-o", tmp_out, cmd[-1]]
+        procs[name] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp_out,
+            out,
+            time.perf_counter(),
+        )
+    failures = []
+    for name, (proc, tmp_out, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        build_logs[name] = log
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for csrc/{name}.cu (rc {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp_out, out)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return seconds
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of ``csrc/<name>.cu``, built if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            out, _ = _target(name)
+            if not os.path.exists(out):
+                build_all([name])
+            lib = ctypes.CDLL(out)
+            _libs[name] = lib
+        return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raises if a kernel's C entry point returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")

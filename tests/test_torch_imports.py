@@ -1,0 +1,72 @@
+"""The port stands alone and runs on the card unless asked otherwise: no
+file of pitchvis_tpu_torch (nor chip_smoke.py) imports JAX or the JAX
+package, and the entry points raise without CUDA instead of moving to the
+CPU on their own."""
+
+import ast
+import os
+
+import pytest
+import torch
+
+import pitchvis_tpu_torch as pt
+from pitchvis_tpu_torch.ops import agc, peaks_pallas, vqt_pallas
+
+from conftest import SMALL_PARAMS
+from torch_port_helpers import to_port
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pitchvis_tpu")
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(os.path.join(ROOT, "pitchvis_tpu_torch")):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_port_files_found():
+    files = _port_files()
+    assert len(files) > 15
+    assert any(f.endswith("chip_smoke.py") for f in files)
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_imports(path):
+    bad = sorted({m for m in _imported_roots(path) if m in FORBIDDEN})
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("entry", ["pipeline", "vqt", "arrays"])
+def test_entry_points_raise_without_cuda(entry, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = to_port(SMALL_PARAMS)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "pipeline":
+            pt.StreamingPipeline(2, params, path="pallas")
+        elif entry == "vqt":
+            pt.Vqt(params, path="pallas")
+        else:
+            pt.make_vqt_arrays(pt.get_kernel(params), path="pallas")
+
+
+def test_cpu_wrappers_take_the_plain_versions():
+    """On CPU tensors the kernels' wrappers run their plain versions and
+    count no launch."""
+    before = (agc.launches, peaks_pallas.launches, vqt_pallas.launches)
+    pipe = pt.StreamingPipeline(2, to_port(SMALL_PARAMS), path="pallas", fast=True, device="cpu")
+    out = pipe.step(torch.zeros(2, 367), 367 / 22050)
+    assert out.x_vqt.shape == (2, SMALL_PARAMS.n_buckets)
+    assert (agc.launches, peaks_pallas.launches, vqt_pallas.launches) == before

@@ -1,0 +1,178 @@
+"""The port's streaming hop (ring + AGC -> fused VQT -> analysis) against
+the JAX package's StreamingPipeline(path="pallas") on the same audio, and
+the committed streaming golden replayed by the port alone."""
+
+import dataclasses
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pitchvis_tpu.core.config import AnalysisParameters
+from pitchvis_tpu.models.analysis import analysis_step_batch as jax_analysis_step_batch
+from pitchvis_tpu.models.pipeline import StreamingPipeline as JaxPipeline
+from pitchvis_tpu_torch import StreamingPipeline
+from pitchvis_tpu_torch.convert import ANALYSIS_LEAVES, pipeline_state_from_numpy, pipeline_state_to_numpy
+from pitchvis_tpu_torch.models.analysis import analysis_step_batch
+
+from conftest import SMALL_PARAMS
+from torch_port_helpers import default_params, streams, to_port
+
+B = 3
+HOPS = 30
+HOP = 367
+DT = HOP / SMALL_PARAMS.sr
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "streaming_golden.npz")
+
+
+def _audio():
+    """B streams of seeded sines + noise; stream 1 carries one NaN chunk
+    (hop 5) and stream 2 one silent chunk (hop 10)."""
+    sig = streams(B, HOPS * HOP, SMALL_PARAMS.sr, seed=0)
+    sig[1, 5 * HOP + 7] = np.nan
+    sig[2, 10 * HOP : 11 * HOP] = 0.0
+    return sig
+
+
+def _jax_state(pipe):
+    s = pipe.state
+    out = {"buffer": np.asarray(s.ring.buffer), "gain": np.asarray(s.ring.gain)}
+    for k in ANALYSIS_LEAVES:
+        out[k] = np.asarray(getattr(s.analysis, k))
+    return out
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["f32", "bf16"])
+def test_hop_matches_jax(fast):
+    """Gains rtol 1e-6 (the AGC is bit-exact; the bound allows nothing
+    more); x_vqt atol 1e-3 dB (f32/bf16 sums in another order); at most 2e-4
+    of the peak bins may flip (a flip needs a bin within ~1e-4 dB of a
+    threshold); continuous outputs atol 1e-3 where the peaks agree."""
+    sig = _audio()
+    jp = JaxPipeline(B, SMALL_PARAMS, path="pallas", fast=fast)
+    tp = StreamingPipeline(B, to_port(SMALL_PARAMS), path="pallas", fast=fast, device="cpu")
+    flips = total = 0
+    for h in range(HOPS):
+        chunk = sig[:, h * HOP : (h + 1) * HOP]
+        jo = jp.step(chunk, DT)
+        to = tp.step(chunk, DT)
+        np.testing.assert_allclose(to.gain.numpy(), np.asarray(jo.gain), rtol=1e-6)
+        np.testing.assert_allclose(to.x_vqt.numpy(), np.asarray(jo.x_vqt), atol=1e-3)
+        jpk = np.asarray(jo.analysis.peaks)
+        tpk = to.analysis.peaks.numpy()
+        flips += int((jpk != tpk).sum())
+        total += jpk.size
+        agree = jpk == tpk
+        for name in ("x_vqt_smoothed", "x_vqt_afterglow", "calmness", "peak_center", "peak_size",
+                     "pitch_accuracy", "pitch_deviation"):
+            got = getattr(to.analysis, name).numpy()
+            want = np.asarray(getattr(jo.analysis, name))
+            np.testing.assert_allclose(got[agree], want[agree], atol=1e-3, err_msg=f"{name}, hop {h}")
+        for name in ("scene_calmness", "tuning_inaccuracy"):
+            np.testing.assert_allclose(
+                getattr(to.analysis, name).numpy(), np.asarray(getattr(jo.analysis, name)), atol=1e-3)
+    assert flips <= 2e-4 * total
+    # the NaN chunk was rejected: nothing non-finite entered the ring
+    assert np.isfinite(tp.state.ring.buffer.numpy()).all()
+    assert (to.analysis.peaks.numpy().sum(axis=1) > 0).any()
+
+
+def test_analysis_on_jax_spectra_gives_identical_peaks():
+    """Given the JAX package's dB spectra and state, the port's analysis
+    step finds the same peaks; state leaves within atol 1e-5 (elementwise
+    float math fused differently by XLA)."""
+    sig = _audio()
+    ap = AnalysisParameters()
+    rng_cfg = SMALL_PARAMS.range
+    jp = JaxPipeline(B, SMALL_PARAMS, path="pallas")
+    for h in range(12):
+        before = _jax_state(jp)
+        jo = jp.step(sig[:, h * HOP : (h + 1) * HOP], DT)
+        state = pipeline_state_from_numpy(before).analysis
+        ts, to = analysis_step_batch(to_port(ap), to_port(rng_cfg), state, torch.from_numpy(np.array(jo.x_vqt)), DT)
+        js, _ = jax_analysis_step_batch(
+            ap, rng_cfg, jp.state.analysis.replace(**{k: jnp.asarray(before[k]) for k in ANALYSIS_LEAVES}),
+            jo.x_vqt, DT)
+        np.testing.assert_array_equal(to.peaks.numpy(), np.asarray(jo.analysis.peaks), err_msg=f"hop {h}")
+        for k in ANALYSIS_LEAVES:
+            np.testing.assert_allclose(getattr(ts, k).numpy(), np.asarray(getattr(js, k)), atol=1e-5, err_msg=k)
+
+
+def test_step_multi_equals_steps_and_reset_matches_jax():
+    sig = _audio()
+    k = 4
+    chunks = np.stack([sig[:, h * HOP : (h + 1) * HOP] for h in range(2 * k)])
+    a = StreamingPipeline(B, to_port(SMALL_PARAMS), path="pallas", device="cpu")
+    b = StreamingPipeline(B, to_port(SMALL_PARAMS), path="pallas", device="cpu")
+    j = JaxPipeline(B, SMALL_PARAMS, path="pallas")
+    multi = a.step_multi(chunks[:k], DT)
+    singles = [b.step(c, DT) for c in chunks[:k]]
+    for h in range(k):
+        assert torch.equal(multi.x_vqt[h], singles[h].x_vqt)
+        assert torch.equal(multi.analysis.peaks[h], singles[h].analysis.peaks)
+    assert torch.equal(a.state.ring.buffer, b.state.ring.buffer)
+    j.step_multi(chunks[:k], DT)
+
+    before = a.state.ring.buffer.clone()
+    a.reset_stream(1)
+    j.reset_stream(1)
+    assert float(a.state.ring.buffer[1].abs().max()) == 0.0 and float(a.state.ring.gain[1]) == 1.0
+    assert torch.equal(a.state.ring.buffer[0], before[0])
+    assert float(a.state.analysis.x_vqt_smoothed[1].abs().max()) == 0.0
+    for c in chunks[k:]:
+        to = a.step(c, DT)
+        jo = j.step(c, DT)
+    np.testing.assert_allclose(to.gain.numpy(), np.asarray(jo.gain), rtol=1e-6)
+    np.testing.assert_allclose(to.x_vqt.numpy(), np.asarray(jo.x_vqt), atol=1e-3)
+
+
+def test_state_round_trip_resumes_like_jax():
+    """A mid-stream JAX state carried across (convert.py) and back is
+    unchanged, and both packages continue from it alike."""
+    sig = _audio()
+    jp = JaxPipeline(B, SMALL_PARAMS, path="pallas")
+    for h in range(6):
+        jp.step(sig[:, h * HOP : (h + 1) * HOP], DT)
+    snap = _jax_state(jp)
+    tp = StreamingPipeline(B, to_port(SMALL_PARAMS), path="pallas", device="cpu")
+    tp.state = pipeline_state_from_numpy(snap)
+    for k, v in pipeline_state_to_numpy(tp.state).items():
+        np.testing.assert_array_equal(v, snap[k], err_msg=k)
+    for h in range(6, 10):
+        chunk = sig[:, h * HOP : (h + 1) * HOP]
+        jo = jp.step(chunk, DT)
+        to = tp.step(chunk, DT)
+    np.testing.assert_allclose(to.gain.numpy(), np.asarray(jo.gain), rtol=1e-6)
+    np.testing.assert_allclose(to.x_vqt.numpy(), np.asarray(jo.x_vqt), atol=1e-3)
+    np.testing.assert_array_equal(to.analysis.peaks.numpy(), np.asarray(jo.analysis.peaks))
+
+
+def test_rebuild_keeps_audio():
+    tp = StreamingPipeline(2, to_port(SMALL_PARAMS), path="pallas", device="cpu")
+    tp.step(streams(2, HOP, SMALL_PARAMS.sr, seed=3), DT)
+    ring = tp.state.ring.buffer.clone()
+    new = dataclasses.replace(to_port(SMALL_PARAMS), quality=SMALL_PARAMS.quality * 1.1)
+    tp.rebuild(new)
+    assert torch.equal(tp.state.ring.buffer, ring)
+    assert tp.vqt_params == new
+    with pytest.raises(ValueError):
+        tp.rebuild(dataclasses.replace(new, sr=44100.0))
+
+
+def test_streaming_golden_replay():
+    """tests/golden/streaming_golden.npz through the port alone at default
+    parameters: spectra atol 1e-3 dB, gains rtol 1e-4 (tests/test_golden.py's
+    tolerances for the JAX package)."""
+    params = default_params()
+    with np.load(GOLDEN) as z:
+        sig, hop, want_spectra, want_gains = z["signal"], int(z["hop"]), z["spectra"], z["gains"]
+    pipe = StreamingPipeline(1, to_port(params), path="pallas", device="cpu")
+    spectra, gains = [], []
+    for i in range(len(sig) // hop):
+        out = pipe.step(sig[None, i * hop : (i + 1) * hop], hop / params.sr)
+        spectra.append(out.x_vqt[0].numpy())
+        gains.append(float(out.gain[0]))
+    np.testing.assert_allclose(np.stack(spectra), want_spectra, atol=1e-3)
+    np.testing.assert_allclose(np.asarray(gains), want_gains, rtol=1e-4)
