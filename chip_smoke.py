@@ -11,9 +11,14 @@ toolkit (nvcc). Phases, each of which fails the run on any error:
    limit;
 2. holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (default VqtParameters, B=2048 streams): the VQT in f32
-   and in bf16 within 1e-3 dB, peaks and AGC bit for bit; the f32 VQT within
-   3e-4 dB of the float64 oracle on 8 frames; and times kernel, plain version
-   and, for the VQT, one torch.matmul per group as a yardstick;
+   and in bf16 within 1e-3 dB and 1e-4 of the frame maximum, also at B=1, at
+   B=130 (no multiple of the kernel's frame tile), at a geometry whose
+   windows are no multiple of any tile and on frames whose address and stride
+   are unaligned; peaks and AGC bit for bit; the f32 VQT within 3e-4 dB of
+   the float64 oracle on 8 frames; and times kernel, plain version and, for
+   the VQT, one torch.matmul per group as a yardstick (the wrapper as a
+   whole and the C call alone; the yardstick is handed frames already cast
+   to its type, and stops before re^2 + im^2);
 3. runs the main path, StreamingPipeline(2048, path="pallas", fast=True), for
    16 hops of seeded synthetic audio (sines, noise, one NaN chunk, one silent
    stream), then 4 hops in f32, checking finite outputs and that each kernel
@@ -21,7 +26,8 @@ toolkit (nvcc). Phases, each of which fails the run on any error:
 4. replays tests/golden/streaming_golden.npz through the f32 fused path on
    one stream (spectra atol 1e-3 dB, gains rtol 1e-4).
 
-It prints a JSON line of per-kernel numbers, then the nvidia-smi line, and as
+It prints a JSON line of the VQT's times by part, a JSON line of per-kernel
+numbers, then the nvidia-smi line, and as
 its last line ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and
 prints no result.
 """
@@ -42,9 +48,10 @@ MAIN_HOPS = 16
 F32_HOPS = 4
 SEED = 0
 
-# NVIDIA H100 SXM data sheet (dense): HBM bytes/s, FFMA and bf16 tensor FLOP/s
+# NVIDIA H100 SXM data sheet (dense): HBM bytes/s, FFMA, tf32 and bf16 tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 
 VQT_DB_TOL = 1e-3  # kernel vs plain, same rounded inputs: only the sum order differs
@@ -157,14 +164,11 @@ def main() -> None:
     frames = synthetic_audio(torch, B, params.n_fft, sr, gen)
     kernels = {}
 
-    for label, dtype, rate, replaces in (
-        ("vqt_power_f32", torch.float32, F32_FLOPS, "pitchvis_tpu/ops/vqt_pallas.py:311"),
-        ("vqt_power_bf16", torch.bfloat16, BF16_FLOPS, "pitchvis_tpu/ops/vqt_pallas.py:291"),
-    ):
-        arrays = vqt_mod.PallasVqtArrays.from_kernel(kernel, dtype=dtype, device=dev)
-        got = vqt_mod.vqt_power_pallas(arrays, frames)
-        want = vqt_mod.vqt_power_pallas_plain(arrays, frames)
+    def vqt_against_plain(label, arrays, x):
+        got = vqt_mod.vqt_power_pallas(arrays, x)
+        want = vqt_mod.vqt_power_pallas_plain(arrays, x)
         torch.cuda.synchronize()
+        check(tuple(got.shape) == (x.shape[0], arrays.n_buckets), f"{label}: shape {tuple(got.shape)}")
         check(bool(torch.isfinite(got).all()), f"{label}: non-finite power")
         err_db = float((power_to_db(got) - power_to_db(want)).abs().max())
         rel = float(((got - want).abs() / want.amax(dim=1, keepdim=True)).max())
@@ -172,6 +176,20 @@ def main() -> None:
               f"max power err / frame max {rel:.3e} (tol {VQT_REL_TOL})")
         check(err_db <= VQT_DB_TOL, f"{label}: {err_db} dB from its plain version")
         check(rel <= VQT_REL_TOL, f"{label}: power {rel} of its frame's maximum from its plain version")
+        return got, err_db, rel
+
+    vqt_times = {}
+    # the f32 mode makes three tf32 products for each f32 one (3xTF32), so
+    # its bound counts three times the multiply-adds at the tf32 rate
+    for label, dtype, rate, passes, replaces in (
+        ("vqt_power_f32", torch.float32, TF32_FLOPS, 3, "pitchvis_tpu/ops/vqt_pallas.py:311"),
+        ("vqt_power_bf16", torch.bfloat16, BF16_FLOPS, 1, "pitchvis_tpu/ops/vqt_pallas.py:291"),
+    ):
+        arrays = vqt_mod.PallasVqtArrays.from_kernel(kernel, dtype=dtype, device=dev)
+        got, err_db, _ = vqt_against_plain(label, arrays, frames)
+        # one frame, and a batch that is no multiple of the kernel's frame tile
+        for b in (1, 130):
+            vqt_against_plain(f"{label} at B={b}", arrays, frames[:b])
 
         tail = frames[:, params.n_fft - arrays.tail :]
         xs = tail.to(dtype)
@@ -181,15 +199,26 @@ def main() -> None:
                 torch.matmul(xs[:, off : off + size], w)
 
         ms = time_ms(torch, lambda: vqt_mod.vqt_power_pallas(arrays, frames))
+        # the C call alone, on frames already checked for alignment (these
+        # launches are counted too, and the counts are reset before the main
+        # path)
+        ready = vqt_mod._kernel_frames(arrays, frames)
+        out = torch.empty((B, arrays.n_buckets), dtype=torch.float32, device=dev)
+        launch_ms = time_ms(torch, lambda: vqt_mod._launch(arrays, ready, out))
+        check(bool(torch.equal(out, got)), f"{label}: the launch alone differs from the wrapper")
+        prepare_ms = time_ms(torch, lambda: vqt_mod._kernel_frames(arrays, frames))
         plain_ms = time_ms(torch, lambda: vqt_mod.vqt_power_pallas_plain(arrays, frames), reps=5, inner=3)
         lib_ms = time_ms(torch, library_call)
         itemsize = torch.tensor([], dtype=dtype).element_size()
         w_bytes = sum(w.numel() * itemsize for w in arrays.weights)
-        moved = B * arrays.tail * itemsize + w_bytes + B * arrays.n_buckets * 4
-        ops = 2.0 * B * sum(size * 2 * nf for size, nf in zip(arrays.window_sizes, arrays.nf))
+        # the frames are read as f32 in both modes (bf16 rounds them in registers)
+        moved = B * arrays.tail * 4 + w_bytes + B * arrays.n_buckets * 4
+        ops = passes * 2.0 * B * sum(size * 2 * nf for size, nf in zip(arrays.window_sizes, arrays.nf))
         b_ms, b_by = bound_ms(moved, ops, rate)
-        print(f"{label}: {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul per group {lib_ms:.4f} ms, "
+        print(f"{label}: wrapper {ms:.4f} ms (launch alone {launch_ms:.4f} ms, tail view and alignment "
+              f"check {prepare_ms:.4f} ms), plain {plain_ms:.4f} ms, torch.matmul per group {lib_ms:.4f} ms, "
               f"bound {b_ms:.4f} ms ({b_by}; {ops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB)")
+        vqt_times[label] = dict(wrapper_ms=ms, launch_ms=launch_ms, prepare_ms=prepare_ms, library_ms=lib_ms)
         kernels[label] = dict(
             name=label, route="cuda", source="pitchvis_tpu_torch/csrc/vqt.cu", replaces=replaces,
             max_abs_err=err_db, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
@@ -200,7 +229,7 @@ def main() -> None:
             err_oracle = float(np.abs(power_to_db(got[:8]).cpu().numpy() - oracle).max())
             print(f"{label}: max |dB| vs float64 oracle on 8 frames {err_oracle:.3e} (tol {ORACLE_DB_TOL})")
             check(err_oracle <= ORACLE_DB_TOL, f"f32 VQT {err_oracle} dB from the oracle")
-        del arrays, xs, got, want
+        del arrays, xs, got, ready, out
 
     # the short final K-tile: window sizes that are no multiple of the tile
     rng = np.random.default_rng(SEED)
@@ -215,6 +244,8 @@ def main() -> None:
         offs.append(tail_len - size)
         nfp.append(fp)
     ragged = vqt_mod.PallasVqtArrays(tuple(ws), tuple(offs), sizes, nfs, tuple(nfp), tail_len, tail_len, sum(nfs))
+    ragged_bf16 = vqt_mod.PallasVqtArrays(
+        tuple(w.to(torch.bfloat16) for w in ws), tuple(offs), sizes, nfs, tuple(nfp), tail_len, tail_len, sum(nfs))
     xr = torch.from_numpy((rng.standard_normal((5, tail_len)) * 0.3).astype(np.float32)).to(dev)
     want64 = []
     for w, off, size, f, fp in zip(ws, offs, sizes, nfs, nfp):
@@ -225,6 +256,20 @@ def main() -> None:
     rel = float(((got - want64).abs() / want64.abs().clamp_min(1e-12)).max())
     print(f"vqt ragged K-tiles (sizes {sizes}): max rel err vs float64 {rel:.3e} (tol 2e-4)")
     check(rel <= 2e-4, "VQT kernel with a short final K-tile disagrees")
+    vqt_against_plain("vqt ragged f32", ragged, xr)
+    vqt_against_plain("vqt ragged bf16", ragged_bf16, xr)
+    # frames whose base address and row stride are no multiples of 16 bytes
+    # go through an aligned copy, never to the plain version
+    wide = torch.zeros((5, tail_len + 3), dtype=torch.float32, device=dev)
+    wide[:, 1 : 1 + tail_len] = xr
+    before = vqt_mod.launches
+    for arr in (ragged, ragged_bf16):
+        same = torch.equal(vqt_mod.vqt_power_pallas(arr, wide[:, 1 : 1 + tail_len]), vqt_mod.vqt_power_pallas(arr, xr))
+        check(bool(same), "VQT kernel on unaligned frames differs from the same frames aligned")
+    check(vqt_mod.launches == before + 4, "unaligned frames did not reach the kernel")
+    check(vqt_mod.vqt_power_pallas(ragged, xr[:0]).shape == (0, sum(nfs)) and vqt_mod.launches == before + 4,
+          "an empty batch must return an empty tensor without a launch")
+    print("vqt unaligned frames: equal to the aligned ones; empty batch: no launch")
 
     # peaks: real VQT spectra (as the main path feeds it), and plateaus
     spectra = power_to_db(vqt_mod.vqt_power_pallas(
@@ -362,6 +407,7 @@ def main() -> None:
     order = ("vqt_power_bf16", "vqt_power_f32", "peaks", "agc")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"vqt_times": vqt_times}))
     print(json.dumps({"kernels": [{k: kernels[n][k] for k in keys} for n in order]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -3,7 +3,9 @@
 Nothing here imports JAX: the caller hands over ``np.asarray`` of the JAX
 package's arrays (a bf16 array arrives as NumPy's ``bfloat16`` extension
 dtype and is reinterpreted bit for bit). With these a test starts both
-packages from the same weights and the same mid-stream state.
+packages from the same weights and the same mid-stream state. Like every
+entry point, these put their tensors on the card unless given
+``device="cpu"``, and raise without CUDA.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.device import resolve_device
 from .models.analysis import AnalysisState
 from .models.pipeline import PipelineState
 from .ops.vqt import VqtArrays
@@ -27,8 +30,9 @@ ANALYSIS_LEAVES = (
 )
 
 
-def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
     """numpy -> torch on ``device``; bfloat16 arrays keep their bits."""
+    device = resolve_device(device)
     a = np.array(a, copy=True, order="C")  # JAX hands out read-only views
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
@@ -44,9 +48,10 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def vqt_arrays_from_numpy(
-    w_time, windows, n_filters, n_fft: int, n_buckets: int, device="cpu"
+    w_time, windows, n_filters, n_fft: int, n_buckets: int, device="cuda"
 ) -> VqtArrays:
     """The ``time`` path's weights: ``w_time`` per group (window, 2*nf)."""
+    device = resolve_device(device)
     return VqtArrays(
         w_time=tuple(tensor_from_numpy(w, device) for w in w_time),
         windows=tuple(tuple(int(v) for v in win) for win in windows),
@@ -58,9 +63,10 @@ def vqt_arrays_from_numpy(
 
 def pallas_vqt_arrays_from_numpy(
     weights, offsets, window_sizes, nf, nf_pad, tail: int, n_fft: int, n_buckets: int,
-    device="cpu",
+    device="cuda",
 ) -> PallasVqtArrays:
     """The fused kernel's padded per-group weights and geometry."""
+    device = resolve_device(device)
     return PallasVqtArrays(
         weights=tuple(tensor_from_numpy(w, device) for w in weights),
         offsets=tuple(int(v) for v in offsets),
@@ -73,9 +79,10 @@ def pallas_vqt_arrays_from_numpy(
     )
 
 
-def pipeline_state_from_numpy(arrays: dict, device="cpu") -> PipelineState:
+def pipeline_state_from_numpy(arrays: dict, device="cuda") -> PipelineState:
     """``arrays``: "buffer" (B, L), "gain" (B,) and the six analysis leaves
     (ANALYSIS_LEAVES) with their leading stream axis."""
+    device = resolve_device(device)
     return PipelineState(
         ring=RingState(
             buffer=tensor_from_numpy(arrays["buffer"], device).float(),

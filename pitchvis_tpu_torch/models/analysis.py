@@ -23,6 +23,7 @@ from dataclasses import dataclass
 import torch
 
 from ..core.config import AnalysisParameters, VqtRange
+from ..core.device import resolve_device
 from ..ops.peaks import (
     _NEG,
     _shift,
@@ -65,7 +66,8 @@ class AnalysisOutputs:
     tuning_inaccuracy: torch.Tensor  # (B,), cents
 
 
-def init_state_batch(n_streams: int, n_buckets: int, device="cpu") -> AnalysisState:
+def init_state_batch(n_streams: int, n_buckets: int, device="cuda") -> AnalysisState:
+    device = resolve_device(device)
     def z(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=device)
 

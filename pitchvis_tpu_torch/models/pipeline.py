@@ -62,8 +62,11 @@ def init_pipeline_state(
     n_streams: int,
     params: VqtParameters,
     buffer_len: int | None = None,
-    device="cpu",
+    device="cuda",
 ) -> PipelineState:
+    """Fresh state for ``n_streams`` streams, on the card unless
+    ``device="cpu"``; without CUDA the default raises."""
+    device = resolve_device(device)
     buffer_len = buffer_len or params.n_fft
     if buffer_len < params.n_fft:
         raise ValueError(f"buffer_len {buffer_len} is shorter than n_fft {params.n_fft}")

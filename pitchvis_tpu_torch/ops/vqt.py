@@ -52,7 +52,9 @@ def precision_for(weight_dtype: torch.dtype) -> torch.dtype:
     """The pairing every entry point makes with a weight dtype: the dtype
     the input frames are rounded to before the product. bf16 weights -> bf16
     inputs (fast mode: every bf16 x bf16 product is exact in f32 and summed in
-    f32); f32 weights -> f32 inputs, summed in full f32 (never TF32)."""
+    f32); f32 weights -> f32 inputs, products to f32 accuracy summed in f32
+    (never single-pass TF32; the fused kernel's 3xTF32 keeps 3e-4 dB to the
+    float64 oracle)."""
     return torch.bfloat16 if weight_dtype == torch.bfloat16 else torch.float32
 
 
@@ -81,8 +83,9 @@ class VqtArrays:
 
     @classmethod
     def from_kernel(
-        cls, kernel: VqtKernel, dtype=torch.float32, device="cpu"
+        cls, kernel: VqtKernel, dtype=torch.float32, device="cuda"
     ) -> "VqtArrays":
+        device = resolve_device(device)
         groups = kernel.window_groups
         return cls(
             w_time=tuple(

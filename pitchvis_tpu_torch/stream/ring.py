@@ -16,6 +16,7 @@ from dataclasses import dataclass
 import torch
 
 from ..core.config import AgcParameters
+from ..core.device import resolve_device
 from ..ops.agc import agc_chunk
 
 
@@ -27,7 +28,8 @@ class RingState:
     gain: torch.Tensor
 
     @classmethod
-    def init(cls, n_streams: int, buffer_len: int, device="cpu") -> "RingState":
+    def init(cls, n_streams: int, buffer_len: int, device="cuda") -> "RingState":
+        device = resolve_device(device)
         return cls(
             buffer=torch.zeros((n_streams, buffer_len), dtype=torch.float32, device=device),
             gain=torch.ones(n_streams, dtype=torch.float32, device=device),

@@ -64,7 +64,7 @@ def test_ring_push_matches_jax(bad):
     rng = np.random.default_rng(2)
     b, length, t = 4, 2048, 367
     jr = JRing.init(b, length)
-    tr = RingState.init(b, length)
+    tr = RingState.init(b, length, device="cpu")
     for hop in range(7):
         ch = _chunk(rng, b, t)
         if hop == 3:
@@ -81,7 +81,7 @@ def test_ring_push_matches_jax(bad):
 
 
 def test_ring_rejects_oversized_requests():
-    r = RingState.init(2, 64)
+    r = RingState.init(2, 64, device="cpu")
     with pytest.raises(ValueError):
         ring_push(r, torch.zeros(2, 65))
     with pytest.raises(ValueError):

@@ -13,7 +13,10 @@ import torch
 from pitchvis_tpu.core.config import AnalysisParameters
 from pitchvis_tpu.models.analysis import analysis_step_batch as jax_analysis_step_batch
 from pitchvis_tpu.models.pipeline import StreamingPipeline as JaxPipeline
-from pitchvis_tpu_torch import StreamingPipeline
+from pitchvis_tpu_torch import StreamingPipeline, convert, get_kernel, init_pipeline_state, init_state_batch
+from pitchvis_tpu_torch.ops.vqt import VqtArrays
+from pitchvis_tpu_torch.ops.vqt_pallas import PallasVqtArrays
+from pitchvis_tpu_torch.stream.ring import RingState
 from pitchvis_tpu_torch.convert import ANALYSIS_LEAVES, pipeline_state_from_numpy, pipeline_state_to_numpy
 from pitchvis_tpu_torch.models.analysis import analysis_step_batch
 
@@ -90,7 +93,7 @@ def test_analysis_on_jax_spectra_gives_identical_peaks():
     for h in range(12):
         before = _jax_state(jp)
         jo = jp.step(sig[:, h * HOP : (h + 1) * HOP], DT)
-        state = pipeline_state_from_numpy(before).analysis
+        state = pipeline_state_from_numpy(before, device="cpu").analysis
         ts, to = analysis_step_batch(to_port(ap), to_port(rng_cfg), state, torch.from_numpy(np.array(jo.x_vqt)), DT)
         js, _ = jax_analysis_step_batch(
             ap, rng_cfg, jp.state.analysis.replace(**{k: jnp.asarray(before[k]) for k in ANALYSIS_LEAVES}),
@@ -137,7 +140,7 @@ def test_state_round_trip_resumes_like_jax():
         jp.step(sig[:, h * HOP : (h + 1) * HOP], DT)
     snap = _jax_state(jp)
     tp = StreamingPipeline(B, to_port(SMALL_PARAMS), path="pallas", device="cpu")
-    tp.state = pipeline_state_from_numpy(snap)
+    tp.state = pipeline_state_from_numpy(snap, device="cpu")
     for k, v in pipeline_state_to_numpy(tp.state).items():
         np.testing.assert_array_equal(v, snap[k], err_msg=k)
     for h in range(6, 10):
@@ -176,3 +179,55 @@ def test_streaming_golden_replay():
         gains.append(float(out.gain[0]))
     np.testing.assert_allclose(np.stack(spectra), want_spectra, atol=1e-3)
     np.testing.assert_allclose(np.asarray(gains), want_gains, rtol=1e-4)
+
+
+def _small_kernel():
+    return get_kernel(to_port(SMALL_PARAMS))
+
+
+def _state_arrays():
+    state = init_pipeline_state(1, to_port(SMALL_PARAMS), device="cpu")
+    return pipeline_state_to_numpy(state)
+
+
+# every exported constructor that places tensors: called with its default
+# device, and with device="cpu"
+CONSTRUCTORS = {
+    "init_pipeline_state": lambda **kw: init_pipeline_state(2, to_port(SMALL_PARAMS), **kw),
+    "init_state_batch": lambda **kw: init_state_batch(2, SMALL_PARAMS.n_buckets, **kw),
+    "RingState.init": lambda **kw: RingState.init(2, 64, **kw),
+    "VqtArrays.from_kernel": lambda **kw: VqtArrays.from_kernel(_small_kernel(), **kw),
+    "PallasVqtArrays.from_kernel": lambda **kw: PallasVqtArrays.from_kernel(_small_kernel(), **kw),
+    "convert.tensor_from_numpy": lambda **kw: convert.tensor_from_numpy(np.zeros(3, np.float32), **kw),
+    "convert.vqt_arrays_from_numpy": lambda **kw: convert.vqt_arrays_from_numpy(
+        [np.zeros((4, 2), np.float32)], [(0, 4)], [1], 4, 1, **kw),
+    "convert.pallas_vqt_arrays_from_numpy": lambda **kw: convert.pallas_vqt_arrays_from_numpy(
+        [np.zeros((4, 256), np.float32)], [0], [4], [1], [128], 4, 4, 1, **kw),
+    "convert.pipeline_state_from_numpy": lambda **kw: pipeline_state_from_numpy(_state_arrays(), **kw),
+}
+
+
+def _leaves(obj):
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, (tuple, list)):
+        return [leaf for item in obj for leaf in _leaves(item)]
+    if dataclasses.is_dataclass(obj):
+        return [leaf for f in dataclasses.fields(obj) for leaf in _leaves(getattr(obj, f.name))]
+    return []
+
+
+@pytest.mark.parametrize("name", sorted(CONSTRUCTORS))
+def test_constructors_default_to_the_card(name):
+    """Entry points run on the card unless asked for the CPU: on a host
+    without CUDA the default device raises instead of placing the tensors on
+    the CPU unasked; with device="cpu" every tensor lies there. (On a host
+    with a card the default places them on it.)"""
+    make = CONSTRUCTORS[name]
+    if torch.cuda.is_available():
+        assert all(leaf.device.type == "cuda" for leaf in _leaves(make()))
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    leaves = _leaves(make(device="cpu"))
+    assert leaves and all(leaf.device.type == "cpu" for leaf in leaves)
