@@ -6,34 +6,44 @@
 Run from the root of the checkout on a machine with a CUDA card and the CUDA
 toolkit (nvcc). Phases, each of which fails the run on any error:
 
-1. builds the three CUDA kernels of pitchvis_tpu_torch/csrc/ (one nvcc each,
-   in parallel) and prints the build seconds and the card's name and power
-   limit;
+1. builds the CUDA sources of pitchvis_tpu_torch/csrc/ (the three kernels
+   and an empty kernel for timing a launch; one nvcc each, in parallel) and
+   prints the build seconds and the card's name and power limit;
 2. holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (default VqtParameters, B=2048 streams): the VQT in f32
    and in bf16 within 1e-3 dB and 1e-4 of the frame maximum, also at B=1, at
    B=130 (no multiple of the kernel's frame tile), at a geometry whose
    windows are no multiple of any tile and on frames whose address and stride
-   are unaligned; peaks and AGC bit for bit; the f32 VQT within 3e-4 dB of
-   the float64 oracle on 8 frames; and times kernel, plain version and, for
-   the VQT, one torch.matmul per group as a yardstick (the wrapper as a
-   whole and the C call alone; the yardstick is handed frames already cast
-   to its type, and stops before re^2 + im^2);
+   are unaligned; peaks and AGC bit for bit (the peaks kernel's primitive
+   outputs, and its selected masks with two configurations and with one,
+   suppression to convergence and for one round, on VQT spectra, a rounded
+   random walk, tie-heavy chains at B=67, one frame, n = 65 / 96 / 1100,
+   rows off 16-byte alignment and the empty batch); the f32 VQT within 3e-4
+   dB of the float64 oracle on 8 frames; and times kernel, plain version
+   and, for the VQT, one torch.matmul per group as a yardstick (the wrapper
+   as a whole and the C call alone; the yardstick is handed frames already
+   cast to its type, and stops before re^2 + im^2), each kernel's time on
+   the card alone (profiler device trace) and, beside the peaks kernel, an
+   empty kernel of the same grid;
 3. runs the main path, StreamingPipeline(2048, path="pallas", fast=True), for
    16 hops of seeded synthetic audio (sines, noise, one NaN chunk, one silent
    stream), then 4 hops in f32, checking finite outputs and that each kernel
-   was launched the expected number of times a hop;
+   was launched the expected number of times a hop; then one analysis step
+   under torch.cuda.set_sync_debug_mode("error"), which fails the run if the
+   step synchronises with the host, and one under the profiler for its
+   launches and device time;
 4. replays tests/golden/streaming_golden.npz through the f32 fused path on
    one stream (spectra atol 1e-3 dB, gains rtol 1e-4).
 
-It prints a JSON line of the VQT's times by part, a JSON line of per-kernel
-numbers, then the nvidia-smi line, and as
+It prints a JSON line of the VQT's times by part, one of the analysis step's
+launches and times, one of per-kernel numbers, then the nvidia-smi line, and as
 its last line ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and
 prints no result.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import subprocess
@@ -94,6 +104,27 @@ def time_ms(torch, fn, reps: int = 7, inner: int = 10) -> float:
     return float(np.median(times))
 
 
+def device_trace(torch, fn, kernel: str | None = None, inner: int = 1) -> tuple[int, float]:
+    """Runs ``fn`` ``inner`` times under torch.profiler and reads the device
+    side of its trace (kernels, copies, memsets). With ``kernel``: (events
+    whose name contains it, their mean device time in ms), the time of one
+    such kernel on the card alone. Without: (all events, their summed device
+    time in ms). Fails if the profiler saw no such event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(inner):
+            fn()
+        torch.cuda.synchronize()
+    times_us = [e.device_time_total for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA and (kernel is None or kernel in e.name)]
+    check(len(times_us) > 0, f"the profiler traced no device activity ({kernel or 'any kernel'})")
+    total_ms = sum(times_us) / 1e3
+    return len(times_us), total_ms / len(times_us) if kernel else total_ms
+
+
 def bound_ms(bytes_moved: float, ops: float, rate: float) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     t_ops = ops / rate
@@ -120,6 +151,7 @@ def main() -> None:
 
     sys.path.insert(0, ROOT)
     from pitchvis_tpu_torch import StreamingPipeline, VqtParameters, get_kernel
+    from pitchvis_tpu_torch.core.config import AnalysisParameters
     from pitchvis_tpu_torch.models import analysis as analysis_mod
     from pitchvis_tpu_torch.ops import agc as agc_mod
     from pitchvis_tpu_torch.ops import peaks_pallas as peaks_mod
@@ -209,6 +241,7 @@ def main() -> None:
         prepare_ms = time_ms(torch, lambda: vqt_mod._kernel_frames(arrays, frames))
         plain_ms = time_ms(torch, lambda: vqt_mod.vqt_power_pallas_plain(arrays, frames), reps=5, inner=3)
         lib_ms = time_ms(torch, library_call)
+        _, card_ms = device_trace(torch, lambda: vqt_mod.vqt_power_pallas(arrays, frames), "vqt_kernel", inner=20)
         itemsize = torch.tensor([], dtype=dtype).element_size()
         w_bytes = sum(w.numel() * itemsize for w in arrays.weights)
         # the frames are read as f32 in both modes (bf16 rounds them in registers)
@@ -216,12 +249,14 @@ def main() -> None:
         ops = passes * 2.0 * B * sum(size * 2 * nf for size, nf in zip(arrays.window_sizes, arrays.nf))
         b_ms, b_by = bound_ms(moved, ops, rate)
         print(f"{label}: wrapper {ms:.4f} ms (launch alone {launch_ms:.4f} ms, tail view and alignment "
-              f"check {prepare_ms:.4f} ms), plain {plain_ms:.4f} ms, torch.matmul per group {lib_ms:.4f} ms, "
+              f"check {prepare_ms:.4f} ms, on the card alone {card_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+              f"torch.matmul per group {lib_ms:.4f} ms, "
               f"bound {b_ms:.4f} ms ({b_by}; {ops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB)")
         vqt_times[label] = dict(wrapper_ms=ms, launch_ms=launch_ms, prepare_ms=prepare_ms, library_ms=lib_ms)
         kernels[label] = dict(
             name=label, route="cuda", source="pitchvis_tpu_torch/csrc/vqt.cu", replaces=replaces,
-            max_abs_err=err_db, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            max_abs_err=err_db, ms=ms, card_ms=card_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms,
         )
         if dtype == torch.float32:
             x8 = frames[:8].cpu().numpy()
@@ -274,28 +309,119 @@ def main() -> None:
     # peaks: real VQT spectra (as the main path feeds it), and plateaus
     spectra = power_to_db(vqt_mod.vqt_power_pallas(
         vqt_mod.PallasVqtArrays.from_kernel(kernel, dtype=torch.bfloat16, device=dev), frames))
-    walk = torch.from_numpy(np.round(np.cumsum(rng.standard_normal((B, params.n_buckets)), 1)).astype(np.float32)).to(dev)
+    n = params.n_buckets
+    bpo = params.range.buckets_per_octave
+
+    def rounded_walk(b, width):
+        return torch.from_numpy(np.round(np.cumsum(rng.standard_normal((b, width)), 1)).astype(np.float32)).to(dev)
+
+    walk = rounded_walk(B, n)
+    # candidates two bins apart with heights from a few levels: equal heights
+    # within the minimum separation, and chains that one round does not settle
+    n_chain = len(range(2, n - 2, 2))
+    chains = torch.zeros((67, n), dtype=torch.float32, device=dev)
+    chains[:, 2:-2:2] = torch.from_numpy(rng.integers(3, 9, (67, n_chain)).astype(np.float32)).to(dev)
+    chains[:33, 2:-2:2] += torch.linspace(20.0, 0.0, n_chain, device=dev).round()
+    wide = torch.zeros((67, n + 3), dtype=torch.float32, device=dev)
+    wide[:, 1 : 1 + n] = spectra[:67]
+    wide[:, 0] = 99.0  # what lies beside the rows must not leak into them
+    wide[:, 1 + n :] = 99.0
+    cases = [("vqt spectra", spectra), ("rounded random walk", walk), ("tie-heavy chains at B=67", chains),
+             ("one frame", spectra[:1]), ("n=65", rounded_walk(5, 65)), ("n=96", rounded_walk(5, 96)),
+             ("n=1100", rounded_walk(5, 1100)),
+             ("rows off 16-byte alignment (base and stride)", wide[:, 1 : 1 + n])]
+
+    # (a) the primitive outputs: local-maximum mask and prominence at every bin
     peak_err = 0.0
-    for label, xs in (("vqt spectra", spectra), ("rounded random walk", walk)):
+    for label, xs in cases:
+        before = peaks_mod.launches
         m_k, p_k = peaks_mod.local_maxima_and_prominences(xs)
         m_p, p_p = peaks_mod.local_maxima_and_prominences_plain(xs)
         same = bool(torch.equal(m_k, m_p)) and bool(torch.equal(p_k, p_p))
         peak_err = max(peak_err, float((p_k - p_p).abs().max()))
-        print(f"peaks on {label}: masks and prominences equal: {same} "
+        print(f"peaks primitives on {label}: masks and prominences equal: {same} "
               f"({int(m_k.sum())} local maxima)")
-        check(same, f"peaks kernel differs from its plain version on {label}")
-    n = params.n_buckets
-    ms = time_ms(torch, lambda: peaks_mod.local_maxima_and_prominences(spectra))
-    plain_ms = time_ms(torch, lambda: peaks_mod.local_maxima_and_prominences_plain(spectra), reps=3, inner=1)
-    # what the function cannot avoid: read the spectrum once, write the mask
-    # (1 byte) and the prominence (4 bytes) once, and at least one compare a
-    # bin (one op an instruction, where the FFMA rate counts two)
-    b_ms, b_by = bound_ms(B * n * 4 + B * n * 5, float(B) * n, F32_FLOPS / 2)
-    print(f"peaks: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        check(same, f"peaks kernel's primitive outputs differ from their plain version on {label}")
+        check(peaks_mod.launches == before + 1, f"peaks primitives on {label}: a CUDA tensor did not reach the kernel")
+
+    # (b) the selected masks, two configurations and one, to convergence and one round
+    ap = AnalysisParameters()
+    two = (ap.bassline_peak_config, ap.peak_config)
+    one = (ap.peak_config,)
+    unconverged = 0
+    for label, xs in cases:
+        before = peaks_mod.launches
+        for configs in (two, one):
+            got = {}
+            for iters in (None, 1):
+                got[iters] = peaks_mod.find_peaks_masks(xs, configs, bpo, iters)
+                want = peaks_mod.find_peaks_masks_plain(xs, configs, bpo, iters)
+                check(len(got[iters]) == len(configs), f"peaks on {label}: {len(got[iters])} masks for {len(configs)} configurations")
+                for g, w in zip(got[iters], want):
+                    check(g.dtype == torch.bool and g.shape == xs.shape, f"peaks on {label}: mask {g.dtype} {tuple(g.shape)}")
+                    check(bool(torch.equal(g, w)), f"peaks kernel's selected masks differ from the plain version on {label} "
+                                                   f"({len(configs)} configurations, suppress_iterations={iters})")
+            unconverged += int(not torch.equal(got[None][0], got[1][0]))
+        check(peaks_mod.launches == before + 4, f"peaks on {label}: a CUDA tensor did not reach the kernel")
+        print(f"peaks selection on {label}: masks equal to the plain version for 2 and 1 configurations, "
+              f"suppress_iterations None and 1 ({int(got[None][0].sum())} peaks under the general configuration)")
+    check(unconverged > 0, "no case left one suppression round short of the fixpoint")
+    before = peaks_mod.launches
+    empty = peaks_mod.find_peaks_masks(spectra[:0], two, bpo)
+    check([tuple(m.shape) for m in empty] == [(0, n), (0, n)] and peaks_mod.launches == before,
+          "an empty batch must return empty masks without a launch")
+    print("peaks selection on the empty batch: empty masks, no launch")
+
+    # times: the main path's first call of a hop (two configurations), then the primitives
+    def select_two():
+        return peaks_mod.find_peaks_masks(spectra, two, bpo)
+
+    ms = time_ms(torch, select_two)
+    _, card_ms = device_trace(torch, select_two, "peaks_kernel", inner=20)
+    one_ms = time_ms(torch, lambda: peaks_mod.find_peaks_masks(spectra, one, bpo))
+    # the kernel's work follows the candidates a row: the same call on the rounded walk
+    _, walk_card_ms = device_trace(torch, lambda: peaks_mod.find_peaks_masks(walk, two, bpo), "peaks_kernel", inner=20)
+    candidates = [float((peaks_mod.local_maxima_and_prominences(xs)[0] & (xs >= two[0].min_height)).sum(1).float().mean())
+                  for xs in (spectra, walk)]
+    plain_ms = time_ms(torch, lambda: peaks_mod.find_peaks_masks_plain(spectra, two, bpo), reps=3, inner=1)
+    # an empty kernel at the grid, block and shared memory that csrc/peaks.cu
+    # launches for these rows: the floor of such a launch on this card
+    floor_fn = nvcc.library("launch_floor").launch_floor
+    floor_fn.restype = ctypes.c_int
+    floor_fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    threads = 32 * -(-(-(-n // 4)) // 32)  # four bins a thread, whole warps
+    n4 = 4 * -(-n // 4)
+    smem = 4 * n4 + 4 * (n // 2 + 1) + 4 * n4
+
+    def empty_launch():
+        nvcc.check(floor_fn(B, threads, smem, torch.cuda.current_stream().cuda_stream), "launch_floor")
+
+    floor_call_ms = time_ms(torch, empty_launch)
+    _, floor_card_ms = device_trace(torch, empty_launch, "empty_kernel", inner=20)
+    # what the function cannot avoid: read the spectrum once, write one byte a
+    # bin and configuration once, and at least one compare a bin (one op an
+    # instruction, where the FFMA rate counts two)
+    b_ms, b_by = bound_ms(B * n * 4 + len(two) * B * n, float(B) * n, F32_FLOPS / 2)
+    print(f"peaks (2 configurations): {ms:.4f} ms a call, {card_ms:.4f} ms on the card alone, "
+          f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); 1 configuration {one_ms:.4f} ms a call; "
+          f"{candidates[0]:.1f} candidates a row here, on the rounded walk's {candidates[1]:.1f} a row "
+          f"{walk_card_ms:.4f} ms on the card alone; "
+          f"empty kernel of {B} blocks x {threads} threads, {smem} B shared: {floor_call_ms:.4f} ms a call, "
+          f"{floor_card_ms:.4f} ms on the card alone")
+    prim_ms = time_ms(torch, lambda: peaks_mod.local_maxima_and_prominences(spectra))
+    _, prim_card_ms = device_trace(torch, lambda: peaks_mod.local_maxima_and_prominences(spectra), "peaks_kernel", inner=20)
+    prim_plain_ms = time_ms(torch, lambda: peaks_mod.local_maxima_and_prominences_plain(spectra), reps=3, inner=1)
+    pb_ms, pb_by = bound_ms(B * n * 4 + B * n * 5, float(B) * n, F32_FLOPS / 2)
+    print(f"peaks primitives (all bins): {prim_ms:.4f} ms a call, {prim_card_ms:.4f} ms on the card alone, "
+          f"plain {prim_plain_ms:.4f} ms, bound {pb_ms:.4f} ms ({pb_by})")
     kernels["peaks"] = dict(
         name="peaks", route="cuda", source="pitchvis_tpu_torch/csrc/peaks.cu",
-        replaces="pitchvis_tpu/ops/peaks_pallas.py:112", max_abs_err=peak_err, ms=ms,
+        replaces="pitchvis_tpu/ops/peaks_pallas.py:112", max_abs_err=peak_err, ms=ms, card_ms=card_ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        one_config_ms=one_ms, candidates_per_row=candidates[0], walk_card_ms=walk_card_ms,
+        walk_candidates_per_row=candidates[1], floor_ms=floor_call_ms, floor_card_ms=floor_card_ms,
+        primitives_ms=prim_ms, primitives_card_ms=prim_card_ms, primitives_plain_ms=prim_plain_ms,
+        primitives_bound_ms=pb_ms,
     )
 
     # AGC at one hop of samples
@@ -308,15 +434,17 @@ def main() -> None:
     print(f"agc: gains and samples equal to the plain version: {same}")
     check(same, "AGC kernel differs from its plain version")
     ms = time_ms(torch, lambda: agc_mod.agc_chunk(gain, chunk))
+    _, card_ms = device_trace(torch, lambda: agc_mod.agc_chunk(gain, chunk), "agc_chunk_kernel", inner=20)
     plain_ms = time_ms(torch, lambda: agc_mod.agc_chunk_plain(gain, chunk), reps=3, inner=1)
     b_ms, b_by = bound_ms(2 * B * hop * 4 + 2 * B * 4, 8.0 * B * hop, F32_FLOPS)
-    print(f"agc: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    print(f"agc: {ms:.4f} ms a call, {card_ms:.4f} ms on the card alone, plain {plain_ms:.4f} ms, "
+          f"bound {b_ms:.5f} ms ({b_by})")
     kernels["agc"] = dict(
         name="agc", route="cuda", source="pitchvis_tpu_torch/csrc/agc.cu",
-        replaces="pitchvis_tpu/ops/agc.py:62", max_abs_err=agc_err, ms=ms,
+        replaces="pitchvis_tpu/ops/agc.py:62", max_abs_err=agc_err, ms=ms, card_ms=card_ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
-    del frames, spectra, walk
+    del frames, spectra, walk, chains, wide, cases
     torch.cuda.empty_cache()
 
     # ---- 3. the main path ----------------------------------------------------
@@ -341,8 +469,8 @@ def main() -> None:
                 check(bool(torch.isfinite(leaf).all()), f"{label}: non-finite output at hop {h}")
         c = counts()
         steady = float(np.median(hop_ms[1:])) if n_hops > 1 else hop_ms[0]
-        print(f"{label}: {n_hops} hops at B={B}, hop ms first {hop_ms[0]:.2f}, median after {steady:.3f}, "
-              f"aggregate realtime {B * dt * 1e3 / steady:.1f}x, launches {c}")
+        print(f"{label}: {n_hops} hops at B={B}, hop ms first {hop_ms[0]:.2f}, median after {steady:.3f} "
+              f"(min {min(hop_ms[1:] or hop_ms):.3f}, max {max(hop_ms[1:] or hop_ms):.3f}), aggregate realtime {B * dt * 1e3 / steady:.1f}x, launches {c}")
         want = {"vqt": n_hops, "peaks": 2 * n_hops, "agc": n_hops}
         check(c == want, f"{label}: launches {c}, expected {want}")
         return outs, c, steady
@@ -372,6 +500,39 @@ def main() -> None:
         for i, key in enumerate(stage):
             stage[key].append(ev[i].elapsed_time(ev[i + 1]))
     print("stage ms (median of 4 hops): " + json.dumps({k: round(float(np.median(v)), 4) for k, v in stage.items()}))
+
+    # the analysis stage must never wait for the card: under this mode any
+    # synchronising call raises, which ends the run
+    def analysis_step():
+        return analysis_mod.analysis_step_batch(pipe.analysis_params, params.range, state.analysis, x_vqt, dt)
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        analysis_step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print('analysis step at B=2048 under set_sync_debug_mode("error"): no host synchronisation')
+    # host and card shares of the stage: the host's time to enqueue a step,
+    # the step's time to its end, and the card's busy time in it
+    enqueue_ms, wall_ms = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        analysis_step()
+        enqueue_ms.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        wall_ms.append((time.perf_counter() - t) * 1e3)
+    # the profiler now and then loses events: of three traced steps, the fullest
+    step_launches, step_device_ms = max(device_trace(torch, analysis_step) for _ in range(3))
+    analysis_profile = dict(
+        launches=step_launches, device_ms=step_device_ms,
+        enqueue_ms=float(np.median(enqueue_ms)), wall_ms=float(np.median(wall_ms)),
+    )
+    print(f"analysis step: {json.dumps(analysis_profile)} (launches and device ms from the profiler, "
+          f"one step; enqueue and wall ms by the host clock, median of 5, not under the profiler): "
+          f"the card is busy {100 * step_device_ms / analysis_profile['wall_ms']:.1f}% of the step")
     del pipe, outs, state, ring, x_vqt
     torch.cuda.empty_cache()
 
@@ -405,10 +566,9 @@ def main() -> None:
     check(counts() == {"vqt": n_hops, "peaks": 2 * n_hops, "agc": n_hops}, "golden replay skipped a kernel")
 
     order = ("vqt_power_bf16", "vqt_power_f32", "peaks", "agc")
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"vqt_times": vqt_times}))
-    print(json.dumps({"kernels": [{k: kernels[n][k] for k in keys} for n in order]}))
+    print(json.dumps({"analysis_step": analysis_profile}))
+    print(json.dumps({"kernels": [kernels[n] for n in order]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
 

@@ -8,12 +8,14 @@ Port of ``pitchvis_tpu/models/analysis.py``: `AnalysisState::preprocess`
 per-frame step, every function here carries the stream axis first: state
 tensors are (B, n) per-bin or (B,) per-stream.
 
-The local maxima and prominences of the smoothed and of the raw spectrum
-come from the peaks kernel (ops/peaks_pallas.py), two launches a hop; the
-``min_height`` prefilter of the JAX package's ``prominences_compact`` is
-applied as a mask, which gives the same peak masks, because
-``find_peaks_mask`` reads prominence only at local maxima at or above its
-config's ``min_height``.
+The discrete peak masks come finished from the peaks kernel
+(ops/peaks_pallas.py::find_peaks_masks), two launches a hop: the smoothed
+spectrum with the bassline and the general configuration, the raw spectrum
+with the general one. Each equals the JAX package's ``find_peaks_mask`` fed by
+``prominences_compact``: that prefilter by ``min_height`` changes no mask,
+because prominence is read only at local maxima at or above the
+configuration's own ``min_height``. The min-distance suppression runs inside
+the kernel, so the step never synchronises with the host.
 """
 
 from __future__ import annotations
@@ -24,14 +26,8 @@ import torch
 
 from ..core.config import AnalysisParameters, VqtRange
 from ..core.device import resolve_device
-from ..ops.peaks import (
-    _NEG,
-    _shift,
-    enhance_peaks_continuous,
-    find_peaks_mask,
-    promote_bass_peaks,
-)
-from ..ops.peaks_pallas import local_maxima_and_prominences
+from ..ops.peaks import _shift, enhance_peaks_continuous, promote_bass_peaks
+from ..ops.peaks_pallas import find_peaks_masks
 from ..utils.ema import ema_update
 from ..utils.rounding import rust_round
 
@@ -114,21 +110,14 @@ def _update_calmness(
     calmness: torch.Tensor,
     released: torch.Tensor,
     scene: torch.Tensor,
-    precomputed_raw: tuple[torch.Tensor, torch.Tensor],
+    peak_mask: torch.Tensor,
 ):
     """Per-bin + scene calmness (calmness.rs:23-95): bins within ~+-30 ct of
-    an *unsmoothed*-VQT peak EMA toward 1, others toward 0; released-note
-    shadow contributes at 30% weight; amplitude(power)-weighted scene average
-    EMA'd; holds in silence. dt: (B, 1)."""
+    an *unsmoothed*-VQT peak (``peak_mask``, general configuration) EMA toward
+    1, others toward 0; released-note shadow contributes at 30% weight;
+    amplitude(power)-weighted scene average EMA'd; holds in silence.
+    dt: (B, 1)."""
     radius = rng.buckets_per_octave // 12 // 3
-
-    peak_mask = find_peaks_mask(
-        x_vqt,
-        params.peak_config,
-        rng.buckets_per_octave,
-        precomputed=precomputed_raw,
-        suppress_iterations=params.suppress_iterations,
-    )
 
     # dilate: bin i is "around" a peak p iff i in [p - radius, p + radius),
     # i.e. there is a peak at i + delta for delta in [-radius+1, radius]
@@ -228,11 +217,13 @@ def _analysis_core(
     x_vqt: torch.Tensor,
     dt: torch.Tensor,
     x_smoothed: torch.Tensor,
-    pre: tuple[torch.Tensor, torch.Tensor],
-    pre_raw: tuple[torch.Tensor, torch.Tensor],
+    bass_mask: torch.Tensor,
+    gen_mask: torch.Tensor,
+    raw_mask: torch.Tensor,
 ) -> tuple[AnalysisState, AnalysisOutputs]:
-    """Steps 2-6 of the analysis chain, given the smoothed spectrum and the
-    (local maxima, prominences) pairs of the smoothed and raw spectra."""
+    """Steps 2-6 of the analysis chain, given the smoothed spectrum, its peak
+    masks under the bassline and the general configuration, and the raw
+    spectrum's peak mask under the general one."""
     n = rng.n_buckets
     idx = torch.arange(n, device=x_vqt.device)
     zero = torch.zeros((), dtype=torch.float32, device=x_vqt.device)
@@ -240,14 +231,6 @@ def _analysis_core(
     # 2. discrete peaks: bassline config at/below highest_bassnote, general
     # config above (analysis.rs:331-349); highest_bassnote is compared with
     # raw bin indices, faithfully to analysis.rs:338/346
-    bass_mask = find_peaks_mask(
-        x_smoothed, params.bassline_peak_config, rng.buckets_per_octave,
-        precomputed=pre, suppress_iterations=params.suppress_iterations,
-    )
-    gen_mask = find_peaks_mask(
-        x_smoothed, params.peak_config, rng.buckets_per_octave,
-        precomputed=pre, suppress_iterations=params.suppress_iterations,
-    )
     peaks = (bass_mask & (idx <= params.highest_bassnote)) | (
         gen_mask & (idx > params.highest_bassnote)
     )
@@ -266,7 +249,7 @@ def _analysis_core(
     calm, released, scene = _update_calmness(
         params, rng, x_vqt, x_smoothed, dt,
         state.calmness, state.released_note_calmness, state.scene_calmness,
-        precomputed_raw=pre_raw,
+        peak_mask=raw_mask,
     )
 
     # 6. tuning inaccuracy + per-bin pitch accuracy/deviation
@@ -299,25 +282,6 @@ def _analysis_core(
     return new_state, outputs
 
 
-def _min_heights(params: AnalysisParameters) -> tuple[float, float]:
-    """(smoothed-spectrum prefilter, raw-spectrum prefilter): prominences are
-    only read at candidates above these heights (calmness peaks use only the
-    general config, calmness.rs:30)."""
-    return (
-        min(params.peak_config.min_height, params.bassline_peak_config.min_height),
-        params.peak_config.min_height,
-    )
-
-
-def _peak_primitives(x: torch.Tensor, min_height: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """(local maxima, prominences) from the peaks kernel, with prominence
-    kept only at local maxima at or above ``min_height`` — the values of the
-    JAX package's ``prominences_compact(x, lmax, min_height)``."""
-    lmax, prom = local_maxima_and_prominences(x)
-    neg = torch.tensor(_NEG, dtype=prom.dtype, device=prom.device)
-    return lmax, torch.where(lmax & (x >= min_height), prom, neg)
-
-
 def analysis_step_batch(
     params: AnalysisParameters,
     rng: VqtRange,
@@ -331,14 +295,25 @@ def analysis_step_batch(
     b, n = x_vqt.shape
     if n != rng.n_buckets:
         raise ValueError(f"x_vqt has {n} bins, the range {rng.n_buckets}")
-    dt_b = torch.as_tensor(dt, dtype=torch.float32, device=x_vqt.device).expand(b)
+    if isinstance(dt, torch.Tensor):
+        dt_b = dt.to(device=x_vqt.device, dtype=torch.float32).expand(b)
+    else:
+        # filled on the device: a host scalar copied over would synchronise
+        dt_b = torch.full((b,), float(dt), dtype=torch.float32, device=x_vqt.device)
     dt_col = dt_b[:, None]
 
     # step 1: calmness- and frequency-adaptive EMA smoothing
     horizons = _smoothing_horizons(params, rng, state.scene_calmness)
     x_smoothed = ema_update(state.x_vqt_smoothed, x_vqt, dt_col, horizons)
 
-    min_h, min_h_raw = _min_heights(params)
-    pre = _peak_primitives(x_smoothed, min_h)
-    pre_raw = _peak_primitives(x_vqt, min_h_raw)
-    return _analysis_core(params, rng, state, x_vqt, dt_col, x_smoothed, pre, pre_raw)
+    # discrete peaks of the smoothed spectrum (bassline and general
+    # configuration) and of the raw one (calmness uses only the general
+    # configuration, calmness.rs:30)
+    bpo = rng.buckets_per_octave
+    bass_mask, gen_mask = find_peaks_masks(
+        x_smoothed, (params.bassline_peak_config, params.peak_config), bpo, params.suppress_iterations
+    )
+    (raw_mask,) = find_peaks_masks(x_vqt, (params.peak_config,), bpo, params.suppress_iterations)
+    return _analysis_core(
+        params, rng, state, x_vqt, dt_col, x_smoothed, bass_mask, gen_mask, raw_mask
+    )

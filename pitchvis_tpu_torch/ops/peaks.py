@@ -18,8 +18,14 @@ Algorithms (scipy semantics, filter order: height -> distance -> prominence):
   index, matching scipy's argsort-from-the-end iteration) as a Jacobi
   fixpoint: a candidate is suppressed iff an unsuppressed higher-priority
   candidate lies strictly within `distance`. The greedy solution is the
-  unique fixpoint; by default the rounds run to exact convergence, which
-  costs one host synchronisation per round (musical spectra: 2-3 rounds).
+  unique fixpoint; by default the rounds run to exact convergence (musical
+  spectra: 2-3 rounds).
+
+`find_peaks_mask`, `_suppress_by_distance` and `prominences` are the plain
+version of the peaks kernel and the CPU route. Their convergence check reads
+the device from the host once a round, so on the card the analysis step
+takes its masks from ops/peaks_pallas.py::find_peaks_masks instead, which
+runs the same rounds inside one kernel launch.
 """
 
 from __future__ import annotations

@@ -20,7 +20,10 @@ def ema_alpha(dt, horizon):
     may be a Python float or a per-bin tensor (seconds).
     """
     dt = torch.as_tensor(dt, dtype=torch.float32)
-    horizon = torch.as_tensor(horizon, dtype=torch.float32, device=dt.device)
+    if not isinstance(horizon, torch.Tensor):
+        # filled on dt's device: a host scalar copied to the card would
+        # synchronise with the host
+        horizon = torch.full((), float(horizon), dtype=torch.float32, device=dt.device)
     positive = horizon > 0.0
     safe = torch.where(positive, horizon, torch.ones_like(horizon))
     alpha = 1.0 - torch.exp(-2.0 * dt / safe)

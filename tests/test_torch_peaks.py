@@ -1,8 +1,10 @@
 """The port's peak primitives against the JAX package: local maxima and
 prominences bit for bit (they take only compares, min, max and one
 subtraction), the peaks kernel's plain version against the JAX Pallas peaks
-kernel (interpret mode), and peak masks from full prominences equal to the
-JAX hot path's pair-compacted ones."""
+kernel (interpret mode), peak masks from full prominences equal to the
+JAX hot path's pair-compacted ones, the plain version of the kernel's peak
+selection identical to the JAX hot path's masks, and a NumPy emulation of the
+kernel's own per-row algorithm identical to that plain version."""
 
 import jax
 import jax.numpy as jnp
@@ -16,11 +18,14 @@ from pitchvis_tpu.ops import peaks as jpeaks
 from pitchvis_tpu.ops.peaks_pallas import local_maxima_and_prominences_pallas
 from pitchvis_tpu_torch.ops import peaks as tpeaks
 from pitchvis_tpu_torch.ops.peaks_pallas import (
+    find_peaks_masks,
+    find_peaks_masks_plain,
     local_maxima_and_prominences,
     local_maxima_and_prominences_plain,
 )
+from pitchvis_tpu_torch.ops.vqt import Vqt
 
-from torch_port_helpers import to_port
+from torch_port_helpers import default_params, peaks_kernel_emulation, streams, to_port
 
 
 def walks(seed, b=6, n=588, quantize=None):
@@ -165,3 +170,150 @@ def test_continuous_and_bass_promotion_match_jax():
     tsize = tpeaks.promote_bass_peaks(tmask, tc, ts, tx, to_port(rng_cfg), 28, 0.3)
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-5)
     np.testing.assert_allclose(tsize.numpy(), np.asarray(jsize), atol=1e-4)
+
+
+def _chains(n, rng):
+    """Rows of candidates two bins apart: heights falling, rising, equal, in
+    short equal runs and random from a few levels. Jacobi rounds on them
+    converge slowly (a falling chain of k peaks needs about k/2 rounds), so a
+    bounded number of rounds leaves a state that is not the fixpoint."""
+    k = (n - 4) // 2
+    steps = [
+        20.0 - 0.25 * np.arange(k),
+        4.0 + 0.25 * np.arange(k),
+        np.full(k, 7.0),
+        20.0 - np.repeat(np.arange((k + 2) // 3), 3)[:k],
+        rng.integers(3, 9, k).astype(np.float64),
+        rng.integers(3, 6, k) + 0.5,
+    ]
+    x = np.zeros((len(steps), n), np.float32)
+    for row, h in zip(x, steps):
+        row[2 + 2 * np.arange(k)] = h
+    # plateaus of two and three bins between singles, and peaks at the ends
+    x[4, 1] = x[4, 2]
+    x[5, n - 2] = 9.0
+    x[5, n - 3] = 9.0
+    return x
+
+
+_VQT_SPECTRA = {}
+
+
+def _vqt_spectra():
+    """dB spectra of the port's own fused VQT (its plain version, on the CPU)
+    at the default parameters, 588 bins at 84 an octave: four frames of six
+    seeded sines each plus noise."""
+    if not _VQT_SPECTRA:
+        params = default_params()
+        sig = streams(12, params.n_fft, params.sr, seed=11).reshape(4, 3, -1).sum(axis=1)
+        vqt = Vqt(to_port(params), path="pallas", device="cpu")
+        _VQT_SPECTRA["x"] = vqt.calculate_vqt_batch_in_db(sig.astype(np.float32)).numpy()
+    return _VQT_SPECTRA["x"]
+
+
+def _selection_inputs(kind, n=588):
+    rng = np.random.default_rng({"walk": 21, "rounded": 22, "chains": 23, "vqt": 24}[kind])
+    if kind == "walk":
+        return walks(21, b=4, n=n) + 1.0
+    if kind == "rounded":
+        # about n/6 local maxima a row, many of equal height, plateaus
+        return walks(22, b=4, n=n, quantize=1.0) + 2.0
+    if kind == "chains":
+        return _chains(n, rng)
+    assert n == 588
+    return _vqt_spectra()
+
+
+SUPPRESS_ITERATIONS = [None, 0, 1, 2, 3]
+SELECTION_KINDS = ["walk", "rounded", "chains", "vqt"]
+
+
+def _jax_masks(x, configs, bpo, suppress_iterations):
+    """The JAX hot path's masks: find_peaks_mask fed by prominences_compact
+    under the smallest min_height of the configurations, as
+    pitchvis_tpu/models/analysis.py::analysis_step feeds it."""
+    min_h = min(c.min_height for c in configs)
+
+    def one(xi, cfg):
+        lm = jpeaks.local_maxima(xi)
+        pre = (lm, jpeaks.prominences_compact(xi, lm, min_h))
+        return jpeaks.find_peaks_mask(xi, cfg, bpo, precomputed=pre, suppress_iterations=suppress_iterations)
+
+    jx = jnp.asarray(x)
+    return [np.asarray(jax.vmap(lambda xi, cfg=cfg: one(xi, cfg))(jx)) for cfg in configs]
+
+
+@pytest.mark.parametrize("suppress_iterations", SUPPRESS_ITERATIONS)
+@pytest.mark.parametrize("kind", SELECTION_KINDS)
+def test_find_peaks_masks_plain_identical_to_jax(kind, suppress_iterations):
+    """Both configurations in one call, and the general one alone (as the
+    analysis step calls it on the raw spectrum), identical to the JAX masks;
+    the bounded rounds too, converged or not."""
+    ap = AnalysisParameters()
+    bpo = 84  # min separation 3 bins, first allowed bin 4
+    x = _selection_inputs(kind)
+    tx = torch.from_numpy(x)
+    both = (ap.bassline_peak_config, ap.peak_config)
+    want = _jax_masks(x, both, bpo, suppress_iterations)
+    got = find_peaks_masks_plain(tx, [to_port(c) for c in both], bpo, suppress_iterations)
+    assert len(got) == 2
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+    assert want[0].any()
+    (alone,) = find_peaks_masks(tx, (to_port(ap.peak_config),), bpo, suppress_iterations)
+    np.testing.assert_array_equal(alone.numpy(), _jax_masks(x, (ap.peak_config,), bpo, suppress_iterations)[0])
+
+
+def test_bounded_rounds_differ_from_the_fixpoint_on_chains():
+    """The chains really leave the bounded mode unconverged, so the cases
+    above and below hold the rounds themselves and not only their end."""
+    ap = to_port(AnalysisParameters())
+    tx = torch.from_numpy(_selection_inputs("chains"))
+    exact = find_peaks_masks_plain(tx, (ap.bassline_peak_config,), 84, None)[0]
+    for k in (0, 1, 2, 3):
+        assert not torch.equal(find_peaks_masks_plain(tx, (ap.bassline_peak_config,), 84, k)[0], exact)
+
+
+@pytest.mark.parametrize("suppress_iterations", SUPPRESS_ITERATIONS)
+@pytest.mark.parametrize("n", [65, 96, 588, 1100])
+@pytest.mark.parametrize("kind", ["walk", "rounded", "chains"])
+def test_kernel_emulation_identical_to_plain(kind, n, suppress_iterations):
+    ap = to_port(AnalysisParameters())
+    x = _selection_inputs(kind, n)[:3 if kind != "chains" else None]
+    rounds = -1 if suppress_iterations is None else suppress_iterations
+    for bpo, configs in ((84, (ap.bassline_peak_config, ap.peak_config)), (120, (ap.peak_config,)), (24, (ap.peak_config,))):
+        want = find_peaks_masks_plain(torch.from_numpy(x), configs, bpo, suppress_iterations)
+        got = peaks_kernel_emulation(
+            x, [(c.min_height, c.min_prominence) for c in configs],
+            tpeaks.min_separation_bins(bpo), rounds, tpeaks.first_allowed_bin(bpo),
+        )
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w.numpy(), err_msg=f"bpo {bpo}")
+
+
+@pytest.mark.parametrize("suppress_iterations", [None, 1])
+def test_kernel_emulation_identical_to_plain_on_vqt_spectra(suppress_iterations):
+    ap = to_port(AnalysisParameters())
+    x = _vqt_spectra()
+    configs = (ap.bassline_peak_config, ap.peak_config)
+    want = find_peaks_masks_plain(torch.from_numpy(x), configs, 84, suppress_iterations)
+    got = peaks_kernel_emulation(
+        x, [(c.min_height, c.min_prominence) for c in configs], 3,
+        -1 if suppress_iterations is None else suppress_iterations, 4,
+    )
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+    assert want[1].any()
+
+
+def test_find_peaks_masks_arguments_and_empty_batch():
+    ap = to_port(AnalysisParameters())
+    x = torch.from_numpy(walks(0, b=2, n=96))
+    with pytest.raises(ValueError):
+        find_peaks_masks(x, (), 84)
+    with pytest.raises(ValueError):
+        find_peaks_masks(x, (ap.peak_config,) * 3, 84)
+    with pytest.raises(ValueError):
+        find_peaks_masks(x, (ap.peak_config,), 84, suppress_iterations=-1)
+    empty = find_peaks_masks(x[:0], (ap.bassline_peak_config, ap.peak_config), 84)
+    assert [tuple(m.shape) for m in empty] == [(0, 96), (0, 96)] and empty[0].dtype == torch.bool
