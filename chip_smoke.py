@@ -18,20 +18,28 @@ toolkit (nvcc). Phases, each of which fails the run on any error:
    outputs, and its selected masks with two configurations and with one,
    suppression to convergence and for one round, on VQT spectra, a rounded
    random walk, tie-heavy chains at B=67, one frame, n = 65 / 96 / 1100,
-   rows off 16-byte alignment and the empty batch); the f32 VQT within 3e-4
-   dB of the float64 oracle on 8 frames; and times kernel, plain version
-   and, for the VQT, one torch.matmul per group as a yardstick (the wrapper
-   as a whole and the C call alone; the yardstick is handed frames already
-   cast to its type, and stops before re^2 + im^2), each kernel's time on
-   the card alone (profiler device trace) and, beside the peaks kernel, an
-   empty kernel of the same grid;
+   rows off 16-byte alignment and the empty batch; the AGC kernel's chunk
+   mode against agc_chunk_plain, and its ring mode, the whole ring push,
+   against ring_push_plain on host copies (no kernel in its path) and on the
+   card at B=2048, L=32768, T=367 with a NaN, an Inf, a -Inf and a silent
+   row, at B=5, L=1003 with T = 367, L, 1, 4, 0, with
+   buffer rows off 16-byte alignment, at T = 4500 and 5000 of L=5000, and
+   on the empty batch); the f32 VQT within 3e-4 dB of the float64 oracle on
+   8 frames; and times kernel, plain version and, where one exists, one
+   PyTorch call as a yardstick (for the VQT one torch.matmul per group,
+   handed frames already cast to its type and stopping before re^2 + im^2;
+   for the ring push one copy_ of buffer[:, T:]), the wrapper as a whole and
+   the C call alone, each kernel's time on the card alone (profiler device
+   trace) and, beside the peaks kernel, an empty kernel of the same grid;
 3. runs the main path, StreamingPipeline(2048, path="pallas", fast=True), for
    16 hops of seeded synthetic audio (sines, noise, one NaN chunk, one silent
    stream), then 4 hops in f32, checking finite outputs and that each kernel
-   was launched the expected number of times a hop; then one analysis step
-   under torch.cuda.set_sync_debug_mode("error"), which fails the run if the
-   step synchronises with the host, and one under the profiler for its
-   launches and device time;
+   was launched the expected number of times a hop; then traces one ring
+   push (it must be one device op) and its plain version op by op, runs
+   one ring push and one analysis step under
+   torch.cuda.set_sync_debug_mode("error"), which fails the run if either
+   synchronises with the host, and one analysis step under the profiler for
+   its launches and device time;
 4. replays tests/golden/streaming_golden.npz through the f32 fused path on
    one stream (spectra atol 1e-3 dB, gains rtol 1e-4).
 
@@ -104,12 +112,13 @@ def time_ms(torch, fn, reps: int = 7, inner: int = 10) -> float:
     return float(np.median(times))
 
 
-def device_trace(torch, fn, kernel: str | None = None, inner: int = 1) -> tuple[int, float]:
+def device_trace(torch, fn, kernel: str | None = None, inner: int = 1, ops: list | None = None) -> tuple[int, float]:
     """Runs ``fn`` ``inner`` times under torch.profiler and reads the device
     side of its trace (kernels, copies, memsets). With ``kernel``: (events
     whose name contains it, their mean device time in ms), the time of one
     such kernel on the card alone. Without: (all events, their summed device
-    time in ms). Fails if the profiler saw no such event."""
+    time in ms). Appends (name, device ms) of each such event to ``ops`` if
+    given. Fails if the profiler saw no such event."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -118,8 +127,11 @@ def device_trace(torch, fn, kernel: str | None = None, inner: int = 1) -> tuple[
         for _ in range(inner):
             fn()
         torch.cuda.synchronize()
-    times_us = [e.device_time_total for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA and (kernel is None or kernel in e.name)]
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and (kernel is None or kernel in e.name)]
+    if ops is not None:
+        ops.extend((e.name, e.device_time_total / 1e3) for e in events)
+    times_us = [e.device_time_total for e in events]
     check(len(times_us) > 0, f"the profiler traced no device activity ({kernel or 'any kernel'})")
     total_ms = sum(times_us) / 1e3
     return len(times_us), total_ms / len(times_us) if kernel else total_ms
@@ -158,7 +170,7 @@ def main() -> None:
     from pitchvis_tpu_torch.ops import vqt_pallas as vqt_mod
     from pitchvis_tpu_torch.ops.vqt import power_to_db
     from pitchvis_tpu_torch.ops.vqt_ref import vqt_frame_db_np
-    from pitchvis_tpu_torch.stream.ring import ring_push, ring_window
+    from pitchvis_tpu_torch.stream.ring import RingState, ring_push, ring_push_plain, ring_window
     from pitchvis_tpu_torch.utils import nvcc
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -424,27 +436,101 @@ def main() -> None:
         primitives_bound_ms=pb_ms,
     )
 
-    # AGC at one hop of samples
+    # AGC, chunk mode: one hop of samples against agc_chunk_plain
     chunk = synthetic_audio(torch, B, hop, sr, gen)
+    chunk[7] = 0.0  # a silent row: its gain stays
     gain = torch.rand(B, generator=gen, device=dev) * 2.0 + 0.1
     g_k, o_k = agc_mod.agc_chunk(gain, chunk)
     g_p, o_p = agc_mod.agc_chunk_plain(gain, chunk)
     same = bool(torch.equal(g_k, g_p)) and bool(torch.equal(o_k, o_p))
     agc_err = max(float((g_k - g_p).abs().max()), float((o_k - o_p).abs().max()))
-    print(f"agc: gains and samples equal to the plain version: {same}")
-    check(same, "AGC kernel differs from its plain version")
-    ms = time_ms(torch, lambda: agc_mod.agc_chunk(gain, chunk))
-    _, card_ms = device_trace(torch, lambda: agc_mod.agc_chunk(gain, chunk), "agc_chunk_kernel", inner=20)
-    plain_ms = time_ms(torch, lambda: agc_mod.agc_chunk_plain(gain, chunk), reps=3, inner=1)
-    b_ms, b_by = bound_ms(2 * B * hop * 4 + 2 * B * 4, 8.0 * B * hop, F32_FLOPS)
-    print(f"agc: {ms:.4f} ms a call, {card_ms:.4f} ms on the card alone, plain {plain_ms:.4f} ms, "
-          f"bound {b_ms:.5f} ms ({b_by})")
+    print(f"agc chunk mode: gains and samples equal to the plain version: {same}")
+    check(same, "AGC kernel's chunk mode differs from its plain version")
+    chunk_ms = time_ms(torch, lambda: agc_mod.agc_chunk(gain, chunk))
+    _, chunk_card_ms = device_trace(torch, lambda: agc_mod.agc_chunk(gain, chunk), "ring_push_kernel", inner=20)
+    chunk_plain_ms = time_ms(torch, lambda: agc_mod.agc_chunk_plain(gain, chunk), reps=3, inner=1)
+    cb_ms, _ = bound_ms(2 * B * hop * 4 + 2 * B * 4, 8.0 * B * hop, F32_FLOPS)
+    print(f"agc chunk mode: {chunk_ms:.4f} ms a call, {chunk_card_ms:.4f} ms on the card alone, "
+          f"plain {chunk_plain_ms:.4f} ms, bound {cb_ms:.5f} ms (bytes; the chain of {hop} steps is not counted)")
+
+    # AGC, ring mode: the whole push against ring_push_plain, at the main
+    # path's shapes with a NaN, an Inf, a -Inf and a silent row, then ragged
+    # shapes, a chunk longer than the kernel's tile, unaligned buffer rows and
+    # the empty batch
+    def push_against_plain(label, ring, xs):
+        before = agc_mod.launches
+        got = ring_push(ring, xs)
+        check(agc_mod.launches == before + 1, f"ring push on {label}: a CUDA tensor did not reach the kernel")
+        # the plain version on copies in host memory, where no kernel runs
+        # (its AGC step there is agc_chunk_plain), and on the card (where its
+        # AGC step is the chunk mode)
+        want = ring_push_plain(RingState(buffer=ring.buffer.cpu(), gain=ring.gain.cpu()), xs.cpu())
+        got_buffer, got_gain = got.buffer.cpu(), got.gain.cpu()
+        same = bool(torch.equal(got_buffer, want.buffer)) and bool(torch.equal(got_gain, want.gain))
+        on_card = ring_push_plain(ring, xs)
+        same_card = bool(torch.equal(got.buffer, on_card.buffer)) and bool(torch.equal(got.gain, on_card.gain))
+        print(f"ring push on {label}: buffer and gain equal to ring_push_plain on the CPU: {same}, "
+              f"on the card: {same_card}")
+        check(same, f"ring push kernel differs from ring_push_plain on the CPU on {label}")
+        check(same_card, f"ring push kernel differs from ring_push_plain on the card on {label}")
+        return max(float((got_buffer - want.buffer).abs().max()), float((got_gain - want.gain).abs().max()))
+
+    def random_ring(b, length):
+        return RingState(buffer=torch.randn((b, length), generator=gen, device=dev) * 0.1,
+                         gain=torch.rand(b, generator=gen, device=dev) * 2.0 + 0.1)
+
+    length = params.n_fft
+    ring = random_ring(B, length)
+    ring_chunk = chunk.clone()
+    ring_chunk[3, 100] = float("nan")
+    ring_chunk[4, 0] = float("inf")
+    ring_chunk[6, hop - 1] = float("-inf")
+    ring_chunk[7] = 0.0
+    n_bad = 3
+    agc_err = max(agc_err, push_against_plain(f"B={B}, L={length}, T={hop} (NaN, Inf, -Inf, silent rows)",
+                                              ring, ring_chunk))
+    small = random_ring(5, 1003)
+    small_chunk = synthetic_audio(torch, 5, 1003, sr, gen)
+    small_chunk[1, 5] = float("nan")
+    small_chunk[2] = 0.0
+    for t in (hop, 1003, 1, 4, 0):
+        push_against_plain(f"B=5, L=1003, T={t}", small, small_chunk[:, :t])
+    wide = torch.zeros((5, 1003 + 3), device=dev)
+    wide[:, 1 : 1 + 1003] = small.buffer
+    push_against_plain("B=5, L=1003, T=367, buffer rows off 16-byte alignment (base and stride)",
+                       RingState(buffer=wide[:, 1 : 1 + 1003], gain=small.gain), small_chunk[:, :hop])
+    long_ring = random_ring(3, 5000)
+    long_chunk = synthetic_audio(torch, 3, 5000, sr, gen)
+    for t in (4500, 5000):
+        push_against_plain(f"B=3, L=5000, T={t}", long_ring, long_chunk[:, :t])
+    before = agc_mod.launches
+    empty = ring_push(RingState(buffer=ring.buffer[:0], gain=ring.gain[:0]), ring_chunk[:0])
+    check(tuple(empty.buffer.shape) == (0, length) and agc_mod.launches == before,
+          "an empty batch must return an empty ring without a launch")
+    print("ring push on the empty batch: empty ring, no launch")
+
+    ms = time_ms(torch, lambda: ring_push(ring, ring_chunk))
+    _, card_ms = device_trace(torch, lambda: ring_push(ring, ring_chunk), "ring_push_kernel", inner=20)
+    plain_ms = time_ms(torch, lambda: ring_push_plain(ring, ring_chunk))
+    buf = ring.buffer
+    lib_ms = time_ms(torch, lambda: torch.empty_like(buf)[:, : length - hop].copy_(buf[:, hop:]))
+    # what the push cannot avoid: read each kept row's buffer[T:L] (a rejected
+    # row's whole buffer), the chunk and the gain once, write the new buffer and
+    # gain once; the recurrence's 8 operations a sample at the FFMA rate
+    moved = ((B - n_bad) * (length - hop) + n_bad * length + B * hop + B) * 4 + (B * length + B) * 4
+    b_ms, b_by = bound_ms(moved, 8.0 * (B - n_bad) * hop, F32_FLOPS)
+    print(f"ring push: {ms:.4f} ms a call, {card_ms:.4f} ms on the card alone, plain (ring_push_plain) "
+          f"{plain_ms:.4f} ms, copy_ of buffer[:, T:] {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}; {moved / 1e6:.1f} MB)")
     kernels["agc"] = dict(
         name="agc", route="cuda", source="pitchvis_tpu_torch/csrc/agc.cu",
-        replaces="pitchvis_tpu/ops/agc.py:62", max_abs_err=agc_err, ms=ms, card_ms=card_ms,
-        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        replaces="pitchvis_tpu/ops/agc.py:62", fuses="pitchvis_tpu/stream/ring.py:55-62",
+        max_abs_err=agc_err, ms=ms, card_ms=card_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms, chunk_ms=chunk_ms, chunk_card_ms=chunk_card_ms, chunk_plain_ms=chunk_plain_ms,
+        chunk_bound_ms=cb_ms,
     )
-    del frames, spectra, walk, chains, wide, cases
+    del ring, ring_chunk, buf, small, wide, long_ring, long_chunk
+    del frames, spectra, walk, chains, cases
     torch.cuda.empty_cache()
 
     # ---- 3. the main path ----------------------------------------------------
@@ -500,9 +586,36 @@ def main() -> None:
         for i, key in enumerate(stage):
             stage[key].append(ev[i].elapsed_time(ev[i + 1]))
     print("stage ms (median of 4 hops): " + json.dumps({k: round(float(np.median(v)), 4) for k, v in stage.items()}))
+    # one ring push on the card: its device ops (the fullest of three traces)
+    # and the host's time to enqueue it
+    push_ops, push_card_ms = max(device_trace(torch, lambda: ring_push(state.ring, chunk, pipe.agc_params))
+                                 for _ in range(3))
+    push_enqueue_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ring_push(state.ring, chunk, pipe.agc_params)
+        push_enqueue_ms.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    print(f"ring push: {push_ops} device op(s), {push_card_ms:.4f} ms on the card, "
+          f"{float(np.median(push_enqueue_ms)):.4f} ms for the host to enqueue it (median of 5)")
+    check(push_ops == 1, f"the ring push launched {push_ops} device ops, expected 1")
+    # its plain version op by op: the eager ops around the chunk mode
+    plain_ops = []
+    _, plain_card_ms = device_trace(torch, lambda: ring_push_plain(state.ring, chunk, pipe.agc_params), ops=plain_ops)
+    print(f"ring_push_plain: {len(plain_ops)} device ops, {plain_card_ms:.4f} ms on the card: "
+          + "; ".join(f"{n} {ms:.4f}" for n, ms in plain_ops))
+    # neither the ring push nor the analysis stage may wait for the card:
+    # under this mode any synchronising call raises, which ends the run
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ring_push(state.ring, chunk, pipe.agc_params)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print('ring push at B=2048 under set_sync_debug_mode("error"): no host synchronisation')
 
-    # the analysis stage must never wait for the card: under this mode any
-    # synchronising call raises, which ends the run
     def analysis_step():
         return analysis_mod.analysis_step_batch(pipe.analysis_params, params.range, state.analysis, x_vqt, dt)
 

@@ -1,61 +1,167 @@
-// AGC kernel: the dagc MonoAgc recurrence over one chunk of samples per stream.
+// Ring push and AGC: one launch a hop takes every stream's ring buffer, gain
+// and chunk of new samples to its new buffer and gain.
 //
 // Replaces: pitchvis_tpu/ops/agc.py::agc_chunk, a lax.scan over the chunk's
-// time axis (not a Pallas kernel). As eager PyTorch the recurrence is about
-// five launches per sample, some 1800 launches a 367-sample hop.
+// time axis (not a Pallas kernel), and the XLA fusion around it in
+// pitchvis_tpu/stream/ring.py::ring_push: the non-finite test, the
+// concatenate-then-select roll of the (B, L) buffer and the gain select. As
+// eager PyTorch those are some eight launches around the recurrence, two of
+// which read the whole ring.
 //
-// Bound on this card: neither bytes (B*T*4 in, B*T*4 out: 6 MB at B=2048,
-// T=367, under 2 us at 3.35 TB/s) nor operations, but the dependent chain of
-// T steps per stream, each a handful of dependent float operations.
+// Bound on this card: bytes. A push reads the ring once and writes the new
+// one once (2 x 268 MB at B=2048, L=32768: 0.16 ms at 3.35 TB/s). The
+// recurrence is a chain of T dependent steps of some six dependent float
+// operations a stream (a few microseconds at T=367), short enough to run
+// under the stream's 128 KB copy.
 //
-// Design: one thread per stream walks its T samples in order, carrying the
-// gain in a register, so a hop is one launch. Small blocks (64 threads) spread
-// the few thousand streams over many SMs, so more loads are in flight while
-// each thread waits on its chain. Rounding follows the CPU reference bit for
-// bit: XLA on the CPU contracts 1 - y*c and 1 + k*(1 - y) into two fused
-// multiply-adds, so the kernel spells those two as __fmaf_rn and every other
-// product and sum as __fmul_rn/__fadd_rn, and the file is compiled with
-// -fmad=false so nvcc adds no contraction of its own.
+// Design: one block a stream (one row).
+// 1. All threads vote on the chunk: a row with any non-finite sample
+//    (__syncthreads_or) copies its buffer unchanged and keeps its gain.
+// 2. Otherwise the roles split. Warp 0 sums the chunk's energy (the silence
+//    freeze), then stages the chunk through shared memory a tile at a time;
+//    lane 0 runs the recurrence on the tile in place and the warp appends it
+//    at new_buffer[L-T:L]. Meanwhile the other warps shift buffer[T:L] to
+//    new_buffer[0:L-T]. No barrier joins the two: they write disjoint ranges.
+// 3. The shift: T is odd at the default hop, so its source and destination
+//    are never both 16-byte aligned. Each thread stores aligned float4s, each
+//    built from the two aligned float4 loads that hold its four source
+//    samples, with a scalar head and tail to the row's alignment.
+// The chunk mode (RING=false, ops/agc.py::agc_chunk) is the same function with
+// L = T, no buffer and no vote, one warp a block: it writes the processed
+// chunk and the gain.
+//
+// Rounding follows the JAX package's CPU scan bit for bit: XLA contracts
+// 1 - y*c and 1 + k*(1 - y) into two fused multiply-adds, so the kernel spells
+// those two as __fmaf_rn and every other product as __fmul_rn, and the file is
+// compiled with -fmad=false so nvcc adds no contraction of its own. The energy
+// is summed in the warp's own order (the same in both modes); it decides only
+// the freeze, which can differ from the JAX package's only on a chunk whose
+// energy lies within rounding of 1e-6.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-__global__ void agc_chunk_kernel(const float* __restrict__ chunk,
-                                 const float* __restrict__ gain_in,
-                                 float* __restrict__ out,
-                                 float* __restrict__ gain_out,
-                                 int B, int T, float k, float inv_rms,
-                                 float silence) {
-  int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const float* x = chunk + (size_t)b * T;
-  float* y = out + (size_t)b * T;
+constexpr int kRingThreads = 256;  // warp 0 runs the chunk, the other warps the shift
+constexpr int kTile = 1024;        // chunk samples a stage of warp 0
+constexpr int kUnroll = 8;         // float4 loads in flight a thread before its stores
 
-  // silence freeze on the pre-gain chunk energy
-  float energy = 0.f;
-  for (int t = 0; t < T; ++t) energy = __fadd_rn(energy, __fmul_rn(x[t], x[t]));
-  const bool frozen = energy < silence;
-
-  float g = gain_in[b];
-  for (int t = 0; t < T; ++t) {
-    float o = __fmul_rn(x[t], g);
-    y[t] = o;
-    float sq = __fmul_rn(o, o);
-    float one_minus_y = __fmaf_rn(-sq, inv_rms, 1.f);
-    float upd = __fmaf_rn(one_minus_y, k, 1.f);
-    upd = (upd >= k || upd != upd) ? upd : k;  // jnp.maximum, NaN-propagating
-    if (!frozen) g = __fmul_rn(g, upd);
-  }
-  gain_out[b] = g;
+// The four source floats src[4i .. 4i+3] from aligned float4s: s4 = src - r is
+// 16-byte aligned. Each float4 read holds at least one sample of the source
+// range, so it lies inside the allocation.
+__device__ __forceinline__ float4 funnel(const float4* __restrict__ s4, int i, int r) {
+  const float4 a = s4[i];
+  if (r == 0) return a;
+  const float4 c = s4[i + 1];
+  if (r == 1) return make_float4(a.y, a.z, a.w, c.x);
+  if (r == 2) return make_float4(a.z, a.w, c.x, c.y);
+  return make_float4(a.w, c.x, c.y, c.z);
 }
 
-extern "C" int agc_chunk_f32(const float* chunk, const float* gain_in, float* out,
-                             float* gain_out, int B, int T, float k, float inv_rms,
-                             float silence, void* stream) {
-  const int threads = 64;
-  const int blocks = (B + threads - 1) / threads;
-  if (blocks > 0) {
-    agc_chunk_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        chunk, gain_in, out, gain_out, B, T, k, inv_rms, silence);
+// dst[0:n] = src[0:n] by threads t of nt: aligned float4 stores between a
+// scalar head (to dst's 16-byte boundary) and a scalar tail.
+__device__ __forceinline__ void copy_row(float* __restrict__ dst, const float* __restrict__ src, int n,
+                                         int t, int nt) {
+  const int head = min(n, (int)(((16u - ((uint32_t)(uintptr_t)dst & 15u)) & 15u) >> 2));
+  if (t < head) dst[t] = src[t];
+  dst += head;
+  src += head;
+  n -= head;
+  const int nv = n >> 2;
+  const int r = (int)(((uintptr_t)src >> 2) & 3);
+  const float4* s4 = reinterpret_cast<const float4*>(src - r);
+  float4* d4 = reinterpret_cast<float4*>(dst);
+  for (int i0 = t; i0 < nv; i0 += kUnroll * nt) {
+    float4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = i0 + u * nt;
+      if (i < nv) v[u] = funnel(s4, i, r);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = i0 + u * nt;
+      if (i < nv) d4[i] = v[u];
+    }
   }
+  if (t < (n & 3)) dst[4 * nv + t] = src[4 * nv + t];
+}
+
+// Warp 0: the freeze and the recurrence over x[0:T], written to y[0:T];
+// returns the new gain in lane 0.
+__device__ __forceinline__ float agc_row(const float* __restrict__ x, float* __restrict__ y, float* tile,
+                                         int T, float g, float k, float inv_rms, float silence) {
+  const int lane = threadIdx.x & 31;
+  float energy = 0.f;
+  for (int i = lane; i < T; i += 32) energy = __fadd_rn(energy, __fmul_rn(x[i], x[i]));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) energy = __fadd_rn(energy, __shfl_xor_sync(0xffffffffu, energy, off));
+  const bool frozen = energy < silence;
+
+  for (int base = 0; base < T; base += kTile) {
+    const int n = min(kTile, T - base);
+    for (int i = lane; i < n; i += 32) tile[i] = x[base + i];
+    __syncwarp();
+    if (lane == 0) {
+      for (int t = 0; t < n; ++t) {
+        const float o = __fmul_rn(tile[t], g);
+        tile[t] = o;
+        const float sq = __fmul_rn(o, o);
+        const float one_minus_y = __fmaf_rn(-sq, inv_rms, 1.f);
+        float upd = __fmaf_rn(one_minus_y, k, 1.f);
+        upd = (upd >= k || upd != upd) ? upd : k;  // jnp.maximum, NaN-propagating
+        if (!frozen) g = __fmul_rn(g, upd);
+      }
+    }
+    __syncwarp();
+    for (int i = lane; i < n; i += 32) y[base + i] = tile[i];
+    __syncwarp();
+  }
+  return g;
+}
+
+// Row b of the output is out + b * L, its last T floats the processed chunk.
+template <bool RING>
+__global__ void __launch_bounds__(RING ? kRingThreads : 32)
+ring_push_kernel(const float* __restrict__ chunk, int64_t chunk_stride, const float* __restrict__ gain_in,
+                 const float* __restrict__ buffer, int64_t buffer_stride, float* __restrict__ out,
+                 float* __restrict__ gain_out, int L, int T, float k, float inv_rms, float silence) {
+  __shared__ float tile[kTile];
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const float* x = chunk + (int64_t)b * chunk_stride;
+  float* row = out + (int64_t)b * L;
+
+  if (RING) {
+    const float* src = buffer + (int64_t)b * buffer_stride;
+    bool bad = false;
+    for (int i = tid; i < T; i += kRingThreads) bad |= !isfinite(x[i]);
+    if (__syncthreads_or(bad)) {
+      copy_row(row, src, L, tid, kRingThreads);
+      if (tid == 0) gain_out[b] = gain_in[b];
+      return;
+    }
+    if (tid >= 32) {
+      copy_row(row, src + T, L - T, tid - 32, kRingThreads - 32);
+      return;
+    }
+  }
+  const float g = agc_row(x, row + (L - T), tile, T, gain_in[b], k, inv_rms, silence);
+  if (tid == 0) gain_out[b] = g;
+}
+
+extern "C" int agc_ring_push_f32(const float* buffer, long long buffer_stride, const float* gain,
+                                 const float* chunk, long long chunk_stride, float* new_buffer,
+                                 float* new_gain, int B, int L, int T, float k, float inv_rms,
+                                 float silence, void* stream) {
+  ring_push_kernel<true><<<B, kRingThreads, 0, (cudaStream_t)stream>>>(
+      chunk, chunk_stride, gain, buffer, buffer_stride, new_buffer, new_gain, L, T, k, inv_rms, silence);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int agc_chunk_f32(const float* chunk, long long chunk_stride, const float* gain, float* out,
+                             float* gain_out, int B, int T, float k, float inv_rms, float silence,
+                             void* stream) {
+  ring_push_kernel<false><<<B, 32, 0, (cudaStream_t)stream>>>(
+      chunk, chunk_stride, gain, nullptr, 0, out, gain_out, T, T, k, inv_rms, silence);
   return (int)cudaGetLastError();
 }

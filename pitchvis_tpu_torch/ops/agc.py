@@ -1,4 +1,4 @@
-"""Digital automatic gain control.
+"""Digital automatic gain control, and the ring push that carries it.
 
 Port of ``pitchvis_tpu/ops/agc.py``: the dagc `MonoAgc` recurrence
 (dagc_fork/src/lib.rs:76-87):
@@ -12,13 +12,19 @@ Port of ``pitchvis_tpu/ops/agc.py``: the dagc `MonoAgc` recurrence
 The gain is frozen for a whole chunk when the *pre-gain* chunk energy is
 below 1e-6 (pitchvis_audio/src/audio_desktop.rs:99-127).
 
-On the card :func:`agc_chunk` launches the hand-written kernel
-``csrc/agc.cu`` (one thread per stream); on the CPU it runs
-:func:`agc_chunk_plain`, a loop over the chunk's samples. Both round as the
-JAX package's CPU scan does, where XLA contracts ``1 - y`` and
-``1 + k * (1 - y)`` into fused multiply-adds: the kernel calls ``__fmaf_rn``
-and the plain version computes those two fused products exactly in float64
-(:func:`fma_f32`), so the three agree bit for bit.
+The hand-written kernel ``csrc/agc.cu`` has two modes of one function:
+
+* :func:`agc_ring_push` (what ``stream/ring.py::ring_push`` calls for CUDA
+  tensors): the whole ring push in one launch, non-finite rejection, the
+  recurrence, the roll of the buffer and the append.
+* :func:`agc_chunk`: the recurrence alone, (gain, chunk) -> (new gain,
+  processed chunk); a CPU tensor goes to :func:`agc_chunk_plain`, a loop over
+  the chunk's samples.
+
+Both round as the JAX package's CPU scan does, where XLA contracts ``1 - y``
+and ``1 + k * (1 - y)`` into fused multiply-adds: the kernel calls
+``__fmaf_rn`` and the plain version computes those two fused products
+exactly in float64 (:func:`fma_f32`), so the three agree bit for bit.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ from ..utils import nvcc
 
 SILENCE_ENERGY = 1e-6
 
-# launches of the CUDA kernel (the plain version does not count)
+# launches of the CUDA kernel, both modes (the plain versions do not count)
 launches = 0
 
 
@@ -88,32 +94,102 @@ def agc_chunk_plain(
     return g, processed
 
 
-def _agc_chunk_cuda(gain, chunk, params):
-    global launches
-    if chunk.dtype != torch.float32 or gain.dtype != torch.float32:
-        raise TypeError("agc kernel takes float32 gain and chunk")
+_lib = None
+
+
+def _kernels() -> ctypes.CDLL:
+    """The built library, the signatures of its two entry points bound once."""
+    global _lib
+    if _lib is None:
+        lib = nvcc.library("agc")
+        ptr, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
+        lib.agc_ring_push_f32.restype = ctypes.c_int
+        lib.agc_ring_push_f32.argtypes = [ptr, i64, ptr, ptr, i64, ptr, ptr] + [i32] * 3 + [f32] * 3 + [ptr]
+        lib.agc_chunk_f32.restype = ctypes.c_int
+        lib.agc_chunk_f32.argtypes = [ptr, i64, ptr, ptr, ptr] + [i32] * 2 + [f32] * 3 + [ptr]
+        _lib = lib
+    return _lib
+
+
+def _check(gain: torch.Tensor, chunk: torch.Tensor, buffer: torch.Tensor | None = None) -> None:
+    """Raises on what the kernel does not take, before any library is
+    loaded: float32 (B,) gain, (B, T) chunk and (B, L) buffer with T <= L,
+    all on one CUDA device."""
+    tensors = (gain, chunk) if buffer is None else (gain, chunk, buffer)
+    if any(x.dtype != torch.float32 for x in tensors):
+        raise TypeError(f"agc kernel takes float32 tensors, got {[x.dtype for x in tensors]}")
     if chunk.dim() != 2 or gain.shape != (chunk.shape[0],):
         raise ValueError(f"expected gain (B,) and chunk (B, T), got {tuple(gain.shape)}, {tuple(chunk.shape)}")
-    if gain.device != chunk.device:
-        raise ValueError("gain and chunk must be on the same device")
-    chunk = chunk.contiguous()
-    gain = gain.contiguous()
-    b, t = chunk.shape
-    out = torch.empty_like(chunk)
-    gain_out = torch.empty_like(gain)
-    k, inv_rms = _constants(params)
-    lib = nvcc.library("agc")
-    fn = lib.agc_chunk_f32
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
-    with torch.cuda.device(chunk.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(
-            chunk.data_ptr(), gain.data_ptr(), out.data_ptr(), gain_out.data_ptr(),
-            b, t, k, inv_rms, SILENCE_ENERGY, stream,
-        )
-    nvcc.check(rc, "agc_chunk_f32")
+    if buffer is not None:
+        if buffer.dim() != 2 or buffer.shape[0] != chunk.shape[0]:
+            raise ValueError(f"expected buffer (B, L) for chunk {tuple(chunk.shape)}, got {tuple(buffer.shape)}")
+        if chunk.shape[1] > buffer.shape[1]:
+            raise ValueError(f"chunk of {chunk.shape[1]} samples exceeds the {buffer.shape[1]}-sample buffer")
+    if len({x.device for x in tensors}) > 1:
+        raise ValueError(f"agc kernel takes tensors on one device, got {[str(x.device) for x in tensors]}")
+    if chunk.device.type != "cuda":
+        raise ValueError(f"agc kernel takes CUDA tensors, got {chunk.device}")
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """x itself if its rows have unit inner stride (any row stride and
+    alignment go to the kernel as they are), else a contiguous copy."""
+    return x if x.shape[1] <= 1 or x.stride(1) == 1 else x.contiguous()
+
+
+def _launch(fn, name: str, device: torch.device, args) -> None:
+    global launches
+    stream = torch.cuda.current_stream(device).cuda_stream
+    # the launch goes to the current device: switch only if the tensors lie elsewhere
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, stream)
+    nvcc.check(rc, name)
     launches += 1
+
+
+def agc_ring_push(
+    buffer: torch.Tensor,
+    gain: torch.Tensor,
+    chunk: torch.Tensor,
+    params: AgcParameters = AgcParameters(),
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ring push in one launch of the kernel on CUDA tensors: (B, L)
+    buffer, (B,) gain, (B, T) chunk -> (new (B, L) buffer, new (B,) gain).
+    A row whose chunk holds any non-finite sample keeps its buffer and gain;
+    every other row is shifted left by T with its AGC-processed chunk
+    appended. The inputs are left as they were. No host synchronisation."""
+    _check(gain, chunk, buffer)
+    b, length = buffer.shape
+    t = chunk.shape[1]
+    buffer, chunk, gain = _rows(buffer), _rows(chunk), gain.contiguous()
+    new_buffer = torch.empty((b, length), dtype=torch.float32, device=buffer.device)
+    new_gain = torch.empty_like(gain)
+    if b:
+        k, inv_rms = _constants(params)
+        _launch(
+            _kernels().agc_ring_push_f32, "agc_ring_push_f32", buffer.device,
+            (buffer.data_ptr(), buffer.stride(0), gain.data_ptr(), chunk.data_ptr(), chunk.stride(0),
+             new_buffer.data_ptr(), new_gain.data_ptr(), b, length, t, k, inv_rms, SILENCE_ENERGY),
+        )
+    return new_buffer, new_gain
+
+
+def _agc_chunk_cuda(gain, chunk, params):
+    _check(gain, chunk)
+    b, t = chunk.shape
+    chunk, gain = _rows(chunk), gain.contiguous()
+    out = torch.empty((b, t), dtype=torch.float32, device=chunk.device)
+    gain_out = torch.empty_like(gain)
+    if b:
+        k, inv_rms = _constants(params)
+        _launch(
+            _kernels().agc_chunk_f32, "agc_chunk_f32", chunk.device,
+            (chunk.data_ptr(), chunk.stride(0), gain.data_ptr(), out.data_ptr(), gain_out.data_ptr(),
+             b, t, k, inv_rms, SILENCE_ENERGY),
+        )
     return gain_out, out
 
 

@@ -7,6 +7,9 @@ and snapshotted per frame (pitchvis_audio/src/lib.rs:17-28). Here a
 by the chunk size and appends the AGC-processed chunk, so the last sample is
 always "now" and the VQT reads the trailing n_fft samples with no host
 round-trip.
+
+On the card a push is one launch of the AGC kernel in its ring mode
+(``ops/agc.py::agc_ring_push``); on the CPU it runs :func:`ring_push_plain`.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import torch
 
 from ..core.config import AgcParameters
 from ..core.device import resolve_device
-from ..ops.agc import agc_chunk
+from ..ops.agc import agc_chunk, agc_ring_push
 
 
 @dataclass
@@ -46,7 +49,9 @@ def ring_push(
     are rejected for that stream (audio_desktop.rs:102-105 — an Inf would
     collapse the AGC gain and poison every VQT frame the window covers).
 
-    Returns a new state; the old one is left as it was."""
+    Returns a new state; the old one is left as it was. A ring on the card
+    goes to the kernel (one launch, no host synchronisation), a ring on the
+    CPU to :func:`ring_push_plain`."""
     b, t = chunk.shape
     length = state.buffer.shape[1]
     if state.buffer.shape[0] != b:
@@ -56,7 +61,23 @@ def ring_push(
             f"chunk of {t} samples exceeds the {length}-sample "
             "ring buffer; raise buffer_len or lower the hop"
         )
+    if state.buffer.device.type == "cuda":
+        return RingState(*agc_ring_push(state.buffer, state.gain, chunk, agc_params))
+    if state.buffer.device.type == "cpu":
+        return ring_push_plain(state, chunk, agc_params)
+    raise ValueError(f"unsupported device {state.buffer.device}")
 
+
+def ring_push_plain(
+    state: RingState,
+    chunk: torch.Tensor,
+    agc_params: AgcParameters = AgcParameters(),
+) -> RingState:
+    """Plain PyTorch version of :func:`ring_push` (which checks the shapes),
+    op by op as the JAX package writes it. On the card its AGC step is the
+    kernel's chunk mode (:func:`~pitchvis_tpu_torch.ops.agc.agc_chunk`)."""
+    t = chunk.shape[1]
+    length = state.buffer.shape[1]
     bad = (~torch.isfinite(chunk)).any(dim=-1)
     keep = bad[:, None]
     safe_chunk = torch.where(keep, torch.zeros((), dtype=chunk.dtype, device=chunk.device), chunk)

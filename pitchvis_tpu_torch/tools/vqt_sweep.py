@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import ctypes
 import json
-import os
 import subprocess
 import sys
 
@@ -72,26 +71,10 @@ def _time_ms(fn, reps: int = 5, inner: int = 10) -> float:
 
 
 def _build(variants) -> dict[str, ctypes.CDLL]:
-    out_dir = os.path.join(nvcc.BUILD_DIR, "sweep")
-    os.makedirs(out_dir, exist_ok=True)
-    src = os.path.join(nvcc.CSRC_DIR, "vqt.cu")
-    procs = {}
-    for i, (label, macros) in enumerate(variants):
-        out = os.path.join(out_dir, f"libvqt_{i}.so")
-        defs = [f"-D{k}={v}" for k, v in macros.items()]
-        cmd = [nvcc.nvcc_path(), *nvcc.ARCH_FLAGS, *nvcc.BASE_FLAGS, *nvcc.EXTRA_FLAGS["vqt"],
-               *defs, "-o", out, src]
-        procs[label] = (
-            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
     libs = {}
-    for label, (proc, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for variant {label!r}:\n{log}")
-        report = [line.strip() for line in log.splitlines()
-                  if "registers" in line or "spill" in line or "warning" in line.lower()]
+    for label, (lib, report) in nvcc.build_variants("vqt", variants).items():
         print(f"{label}: {report}")
-        libs[label] = ctypes.CDLL(out)
+        libs[label] = lib
     return libs
 
 

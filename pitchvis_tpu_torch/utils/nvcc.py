@@ -101,6 +101,32 @@ def build_all(names=None) -> dict[str, float]:
     return seconds
 
 
+def build_variants(name: str, variants) -> dict[str, tuple[ctypes.CDLL, list[str]]]:
+    """Builds ``csrc/<name>.cu`` once for each ``(label, macros)`` of
+    ``variants`` (each macro a ``-D`` flag; one nvcc each, all started
+    together) into ``build/pitchvis_tpu_torch/sweep/`` and loads each.
+    Returns label -> (library, the build's register, spill and warning
+    lines). Raises on any failure."""
+    out_dir = os.path.join(BUILD_DIR, "sweep")
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    procs = {}
+    for i, (label, macros) in enumerate(variants):
+        out = os.path.join(out_dir, f"lib{name}_{i}.so")
+        defs = [f"-D{k}={v}" for k, v in macros.items()]
+        cmd = [nvcc_path(), *ARCH_FLAGS, *BASE_FLAGS, *EXTRA_FLAGS[name], *defs, "-o", out, src]
+        procs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
+    libs = {}
+    for label, (proc, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for csrc/{name}.cu, variant {label!r}:\n{log}")
+        report = [line.strip() for line in log.splitlines()
+                  if "registers" in line or "spill" in line or "warning" in line.lower()]
+        libs[label] = (ctypes.CDLL(out), report)
+    return libs
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of ``csrc/<name>.cu``, built if needed."""
     with _lock:

@@ -130,3 +130,119 @@ def peaks_kernel_emulation(x, configs, distance, rounds, min_bin, step=32):
                 if alive & (1 << c) and prom >= proms[c]:
                     out[c][row, i] = True
     return out
+
+
+def _fma32(a, b, c):
+    """float32 ``a * b + c`` with one rounding, as ``__fmaf_rn`` computes it:
+    the product of two float32 values is exact in float64, and where the
+    float64 sum lands exactly halfway between two float32 values, the exact
+    error of the sum (TwoSum) decides the direction."""
+    p = np.asarray(a, np.float32).astype(np.float64) * np.float64(np.float32(b))
+    c = np.float64(np.float32(c))
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)
+    r = s.astype(np.float32)
+    r64 = r.astype(np.float64)
+    nb = np.nextafter(r, np.where(s > r64, np.inf, -np.inf).astype(np.float32))
+    halfway = (s != r64) & (s == (r64 + nb.astype(np.float64)) * 0.5) & (err != 0)
+    return np.where(halfway, np.where(err > 0, np.maximum(r, nb), np.minimum(r, nb)), r)
+
+
+def ring_push_kernel_emulation(buffer, gain, chunk, k, inv_rms, silence, *, src_offset=0,
+                               threads=256, unroll=8, tile=1024):
+    """NumPy emulation, block by block, of the ring mode of
+    pitchvis_tpu_torch/csrc/agc.cu (the kernel itself only runs on a CUDA
+    card), with its memory as flat float32 arrays:
+
+    1. the vote: each thread tests its strided chunk samples for non-finite
+       values, the block ORs them; a rejected row copies its whole buffer row
+       and keeps its gain;
+    2. warp 0: the energy as 32 lanes' strided sums and an xor butterfly, then
+       the recurrence in lane 0 over tiles of ``tile`` samples staged in
+       shared memory, appended at new_buffer[L-T:L];
+    3. the other warps: the shift of buffer[T:L] to new_buffer[0:L-T] as the
+       kernel's ``copy_row`` does it, a scalar head to the destination's
+       16-byte boundary, aligned float4 stores each built from the two aligned
+       float4 loads around its four source samples (thread t takes vectors t +
+       nt * (u + unroll * m)), a scalar tail.
+
+    The source buffer lies ``src_offset`` floats past a 16-byte boundary
+    (rows of stride L); the new buffer is a fresh, aligned allocation. Checks
+    as it goes that every aligned load holds a source sample of its row and
+    lies inside the allocation, and that every output float is written
+    exactly once. Returns (new_buffer, new_gain)."""
+    buffer = np.asarray(buffer, np.float32)
+    chunk = np.asarray(chunk, np.float32)
+    b_rows, length = buffer.shape
+    t_len = chunk.shape[1]
+    alloc = -(-(src_offset + b_rows * length) // 4) * 4  # whole 16-byte words
+    src_mem = np.zeros(alloc, np.float32)
+    src_mem[src_offset : src_offset + b_rows * length] = buffer.ravel()
+    dst_mem = np.zeros(b_rows * length, np.float32)
+    written = np.zeros(b_rows * length, np.int64)
+    new_gain = np.asarray(gain, np.float32).copy()
+
+    def copy_row(dst, src, n, nt):
+        head = min(n, (-dst) % 4)
+        for t in range(min(head, nt)):
+            dst_mem[dst + t] = src_mem[src + t]
+            written[dst + t] += 1
+        dst, src, n = dst + head, src + head, n - head
+        nv, r = n >> 2, src % 4
+        if nv:
+            assert dst % 4 == 0, "float4 stores start on a 16-byte boundary"
+            taken = np.concatenate([
+                np.arange(t + u * nt, nv, unroll * nt) for t in range(nt) for u in range(unroll)])
+            assert np.array_equal(np.sort(taken), np.arange(nv)), "each vector once"
+            aligned = src - r + 4 * np.arange(nv)
+            lanes = np.arange(8 if r else 4)
+            idx = aligned[:, None] + lanes
+            assert idx.min() >= 0 and idx.max() < alloc, "an aligned load leaves the allocation"
+            # the first load holds src[4i], the second (r > 0) src[4i + 3]
+            assert np.all(aligned + 4 > src + 4 * np.arange(nv))
+            if r:
+                assert np.all(aligned + 4 <= src + 4 * np.arange(nv) + 3)
+            vals = src_mem[idx][:, r : r + 4]
+            dst_mem[dst : dst + 4 * nv] = vals.ravel()
+            written[dst : dst + 4 * nv] += 1
+        for t in range(min(n & 3, nt)):
+            dst_mem[dst + 4 * nv + t] = src_mem[src + 4 * nv + t]
+            written[dst + 4 * nv + t] += 1
+
+    good, frozen = [], []
+    for b in range(b_rows):
+        x = chunk[b]
+        src_row, dst_row = src_offset + b * length, b * length
+        votes = [not np.isfinite(x[t::threads]).all() for t in range(threads)]
+        if any(votes):
+            copy_row(dst_row, src_row, length, threads)
+            continue
+        copy_row(dst_row, src_row + t_len, length - t_len, threads - 32)
+        lanes = np.zeros(32, np.float32)
+        for lane in range(32):
+            for v in x[lane::32]:
+                lanes[lane] = np.float32(lanes[lane] + np.float32(v * v))
+        for off in (16, 8, 4, 2, 1):
+            lanes = (lanes + lanes[np.arange(32) ^ off]).astype(np.float32)
+        good.append(b)
+        frozen.append(bool(lanes[0] < np.float32(silence)))
+    # lane 0 of each kept row's warp 0, the rows side by side (each its own block)
+    frozen = np.array(frozen, bool)
+    g = np.asarray(gain, np.float32)[good]
+    k32 = np.float32(k)
+    for base in range(0, t_len, tile):
+        staged = chunk[good, base : base + tile].copy()
+        for t in range(staged.shape[1]):
+            o = (staged[:, t] * g).astype(np.float32)
+            staged[:, t] = o
+            upd = _fma32(_fma32(-(o * o).astype(np.float32), inv_rms, 1.0), k, 1.0)
+            upd = np.where((upd >= k32) | (upd != upd), upd, k32)
+            g = np.where(frozen, g, (g * upd).astype(np.float32))
+        for i, b in enumerate(good):
+            tail = b * length + length - t_len + base
+            dst_mem[tail : tail + staged.shape[1]] = staged[i]
+            written[tail : tail + staged.shape[1]] += 1
+    new_gain[good] = g
+    assert (written == 1).all(), "every output float written exactly once"
+    return dst_mem.reshape(b_rows, length), new_gain
