@@ -41,21 +41,41 @@ toolkit (nvcc). Phases, each of which fails the run on any error:
    synchronises with the host, and one analysis step under the profiler for
    its launches and device time;
 4. replays tests/golden/streaming_golden.npz through the f32 fused path on
-   one stream (spectra atol 1e-3 dB, gains rtol 1e-4).
+   one stream (spectra atol 1e-3 dB, gains rtol 1e-4);
+5. serves through the serving runtime, StreamServer(2048, path="pallas",
+   fast=True): after a 1 s warm-up push, 16 hops of push_batch of a seeded
+   (2048, 367) block (sines and noise, one NaN row, one silent row) and
+   step(dt=367/22050), timed by the host clock with a synchronize, each
+   checked finite, with the VQT kernel launched once and the peaks kernel
+   twice a hop; the split of four more hops (push_batch, native consume and
+   the copy's enqueue by the host clock; the copy, roll, VQT + dB and
+   analysis by CUDA events); the server's stats, peak device memory and the
+   native ring bank's host bytes; a delta hop and a catch-up hop under
+   set_sync_debug_mode("error"); serve(rate_hz=60, pipelined=True) and
+   serve(hops_per_dispatch=4, publish="per_hop") for 2 s each beside a
+   producer thread pushing at the audio rate; then, with torch.equal at
+   B=256, step_multi(4) against 4 step()s, per_hop=True against the hops,
+   pipelined + flush against unpipelined, delta against snapshot ingest, and
+   a reset row against a fresh server's; and a B=64 server on the card
+   against one on the CPU for 8 hops (gains equal; continuous outputs within
+   1e-3 where the peaks agree, at most 2e-4 of the peak bins flipped).
 
 It prints a JSON line of the VQT's times by part, one of the analysis step's
-launches and times, one of per-kernel numbers, then the nvidia-smi line, and as
-its last line ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and
-prints no result.
+launches and times, one of per-kernel numbers (``launches`` summed over the
+pipeline's and the server's measured hops, ``launches_by_path`` each), then
+the nvidia-smi line, and as its last line ``{"ok": true, "device": {...}}``.
+Without CUDA it exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -65,6 +85,11 @@ B = 2048
 MAIN_HOPS = 16
 F32_HOPS = 4
 SEED = 0
+SERVER_HOPS = 16
+EQ_B = 256  # the server's equalities on the card
+CPU_B = 64  # the server on the card against one on the CPU
+CPU_HOPS = 8
+LOOP_S = 2.0
 
 # NVIDIA H100 SXM data sheet (dense): HBM bytes/s, FFMA, tf32 and bf16 tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -155,6 +180,286 @@ def synthetic_audio(torch, n_streams: int, n_samples: int, sr: float, gen) -> "t
     return (sig + noise).float()
 
 
+def outputs_equal(torch, a, b, row=None) -> bool:
+    """Every field of two AnalysisOutputs equal (torch.equal), or only
+    their row ``row``."""
+    import dataclasses
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if row is not None:
+            x, y = x[row], y[row]
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+def serving_phase(torch, params, counts, reset_counts) -> dict:
+    """Phase 5: StreamServer(2048, path="pallas", fast=True) hop by hop, the
+    split of its hop, its equalities on the card, a B=64 server on the card
+    against one on the CPU, two hops under set_sync_debug_mode("error"),
+    and both serve-loop modes. Returns the kernels' launch counts of the
+    measured hops. Its audio comes from generators of its own (seeds
+    SEED + 1 and, for the card against the CPU, SEED + 2), so each part can
+    be replayed alone."""
+    from pitchvis_tpu_torch import StreamServer
+    from pitchvis_tpu_torch.models.analysis import analysis_step_batch
+    from pitchvis_tpu_torch.ops.vqt import vqt_db_auto
+
+    sr = params.sr
+    hop = int(sr / 60.0)  # the server's hop at its default hop_seconds
+    dt = hop / sr
+    warm = int(sr)
+    nan_row, silent_row = 5, 7
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+
+    def host_audio(n_streams, n_samples):
+        return synthetic_audio(torch, n_streams, n_samples, sr, gen).cpu().numpy()
+
+    def finite(out):
+        return all(bool(torch.isfinite(getattr(out, k)).all()) for k in
+                   ("x_vqt_smoothed", "x_vqt_afterglow", "calmness", "peak_size", "scene_calmness",
+                    "tuning_inaccuracy"))
+
+    # (a) the hop at full width: per hop a (2048, 367) block with one NaN row
+    # (rejected: that stream freezes) and one silent row
+    n_blocks = SERVER_HOPS + 12
+    sig = host_audio(B, warm + n_blocks * hop)
+    sig[silent_row] = 0.0
+    blocks = [sig[:, warm + i * hop : warm + (i + 1) * hop].copy() for i in range(n_blocks)]
+    for block in blocks:
+        block[nan_row, 100] = np.nan
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    srv = StreamServer(B, params, path="pallas", fast=True, device="cuda")
+    t = time.perf_counter()
+    srv.push_batch(sig[:, :warm])
+    warm_push_ms = (time.perf_counter() - t) * 1e3
+    srv.step(dt=dt)  # materializes the window from the warm-up second
+    srv.push_batch(blocks[0])
+    srv.step(dt=dt)
+    torch.cuda.synchronize()
+    frozen_before = srv.stats["frozen"]
+    reset_counts()
+    hop_ms, push_ms = [], []
+    for h in range(1, SERVER_HOPS + 1):
+        t = time.perf_counter()
+        ok = srv.push_batch(blocks[h])
+        push_ms.append((time.perf_counter() - t) * 1e3)
+        check(not ok[nan_row] and int(ok.sum()) == B - 1, "push_batch: the NaN row must be rejected alone")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out, gains = srv.step(dt=dt)
+        torch.cuda.synchronize()
+        hop_ms.append((time.perf_counter() - t) * 1e3)
+        check(finite(out), f"server: non-finite output at hop {h}")
+    server_counts = counts()
+    want = {"vqt": SERVER_HOPS, "peaks": 2 * SERVER_HOPS, "agc": 0}
+    check(server_counts == want, f"server: launches {server_counts}, expected {want}")
+    check(float(gains[silent_row]) == 1.0, "server: the silent stream's gain moved")
+    check(srv.stats["frozen"] - frozen_before == SERVER_HOPS, f"server: frozen stream-hops {srv.stats}")
+    check(int(out.peaks.sum()) > 0, "server found no peaks")
+    steady = float(np.median(hop_ms))
+    print(f"server hop: {SERVER_HOPS} hops at B={B} (StreamServer path=pallas fast=True), hop ms median "
+          f"{steady:.3f} (min {min(hop_ms):.3f}, max {max(hop_ms):.3f}), aggregate realtime "
+          f"{B * dt * 1e3 / steady:.1f}x; push_batch ms median {float(np.median(push_ms)):.3f} "
+          f"(1 s warm-up push {warm_push_ms:.1f} ms); launches {server_counts}")
+
+    # the split of a hop: the step's parts one by one (a measured side path
+    # whose hops are written back like served ones)
+    split = {k: [] for k in ("push_batch", "consume", "copy_enqueue", "h2d_copy", "roll", "vqt + dB",
+                             "analysis (peaks x2)")}
+    for h in range(SERVER_HOPS + 1, SERVER_HOPS + 5):
+        t0 = time.perf_counter()
+        srv.push_batch(blocks[h])
+        t1 = time.perf_counter()
+        plan, vqt_params, state, window = srv._capture()
+        slot, _, adv = srv._consume_hop()
+        t2 = time.perf_counter()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        chunk = srv._stage.send(slot)
+        adv_t = srv._stage.put(adv)
+        dt_b = torch.full((B,), dt, dtype=torch.float32, device="cuda")
+        t3 = time.perf_counter()
+        ev[1].record()
+        rolled = plan.roll_window(window, chunk, adv_t)
+        ev[2].record()
+        x_vqt = vqt_db_auto(plan.arrays, rolled, path=plan.path)
+        ev[3].record()
+        new_state, _ = analysis_step_batch(plan.analysis_params, plan.rng, state, x_vqt, dt_b)
+        ev[4].record()
+        torch.cuda.synchronize()
+        check(srv._writeback(vqt_params, new_state, rolled), "split hop: write-back refused")
+        for key, v in (("push_batch", t1 - t0), ("consume", t2 - t1), ("copy_enqueue", t3 - t2)):
+            split[key].append(v * 1e3)
+        for i, key in enumerate(("h2d_copy", "roll", "vqt + dB", "analysis (peaks x2)")):
+            split[key].append(ev[i].elapsed_time(ev[i + 1]))
+    print("server split ms (median of 4 hops; push_batch, consume and copy_enqueue by the host clock, the "
+          "rest by CUDA events): " + json.dumps({k: round(float(np.median(v)), 4) for k, v in split.items()}))
+    host_bytes = srv.rings.n_streams * srv.rings.capacity * 4
+    print(f"server: stats {json.dumps(srv.stats)}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; native ring bank {host_bytes / 1e9:.3f} GB "
+          f"of host memory ({srv.rings.n_streams} x {srv.rings.capacity} f32); "
+          f"{B * hop * 4 / 1e6:.2f} MB of f32 chunks over the link a hop")
+
+    # (b) no host synchronisation in a warmed delta hop, nor in a catch-up
+    # hop (after a warm one, which allocates the staging for two chunks)
+    def two_hops(i):
+        return np.concatenate([blocks[i], blocks[i + 1]], axis=1)
+
+    srv.push_batch(two_hops(SERVER_HOPS + 5))
+    srv.step(dt=dt)
+    before = srv.stats["catchup_hops"]
+    for label, pushed in (("one delta hop", blocks[SERVER_HOPS + 7]),
+                          ("a hop and a catch-up hop", two_hops(SERVER_HOPS + 8))):
+        srv.push_batch(pushed)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            srv.step(dt=dt)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        print(f'server step at B={B}, {label}, under set_sync_debug_mode("error"): no host synchronisation')
+    check(srv.stats["catchup_hops"] == before + 1, f"no catch-up hop ran: {srv.stats}")
+
+    # (c) both serve-loop modes for LOOP_S, a producer thread pushing at the
+    # audio rate
+    for mode, kw in (("latest", dict(rate_hz=60.0, pipelined=True)),
+                     ("per_hop", dict(rate_hz=60.0, hops_per_dispatch=4, publish="per_hop"))):
+        stop = threading.Event()
+
+        def produce():
+            next_t = time.monotonic()
+            i = 0
+            while not stop.is_set():
+                srv.push_batch(blocks[i % n_blocks])
+                i += 1
+                next_t += dt
+                stop.wait(max(0.0, next_t - time.monotonic()))
+
+        producer = threading.Thread(target=produce, daemon=True)
+        producer.start()
+        loop = srv.serve(**kw)
+        waits, seq, last = [], 0, None
+        t_end = time.monotonic() + LOOP_S
+        while time.monotonic() < t_end:
+            t = time.monotonic()
+            last = loop.wait_next(seq, timeout=2.0)
+            waits.append((time.monotonic() - t) * 1e3)
+            check(last is not None, f"serve loop ({mode}) published nothing for 2 s")
+            seq = last[0]
+        loop.stop()
+        stop.set()
+        producer.join(timeout=10.0)
+        check(not producer.is_alive(), "the producer thread did not stop")
+        check(loop.error is None and loop.stats["published"] > 0, f"serve loop ({mode}): {loop.stats}")
+        check(finite(last[1]), f"serve loop ({mode}): non-finite outputs")
+        print(f"serve loop {json.dumps(kw)} for {LOOP_S} s: {json.dumps(loop.stats)}; the consumer's "
+              f"wait_next ms median {float(np.median(waits)):.3f}, max {max(waits):.3f} ({len(waits)} waits)")
+    srv.close()
+    del srv, out, sig, blocks
+    torch.cuda.empty_cache()
+
+    # (d) equalities on the card, at B=EQ_B
+    eq_sig = host_audio(EQ_B, warm + 12 * hop)
+    eq_blocks = [eq_sig[:, warm + i * hop : warm + (i + 1) * hop] for i in range(12)]
+
+    def eq_server(warmed=True, **kw):
+        s = StreamServer(EQ_B, params, path="pallas", fast=True, device="cuda", buffer_seconds=2.0, **kw)
+        if warmed:
+            s.push_batch(eq_sig[:, :warm])
+            s.step(dt=dt)
+        return s
+
+    k = 4
+    singles_srv, multi, per_hop = eq_server(), eq_server(), eq_server()
+    singles = []
+    for blk in eq_blocks[:k]:
+        singles_srv.push_batch(blk)
+        singles.append(singles_srv.step(dt=dt)[0])
+        multi.push_batch(blk)
+        per_hop.push_batch(blk)
+    last, _ = multi.step_multi(k)
+    check(outputs_equal(torch, last, singles[-1]) and torch.equal(multi._window, singles_srv._window),
+          "step_multi(4) differs from 4 step()s")
+    hops_out, _ = per_hop.step_multi(k, per_hop=True)
+    check(all(outputs_equal(torch, a, b) for a, b in zip(hops_out, singles)),
+          "step_multi(4, per_hop=True) differs from the 4 hops")
+    plain, piped = eq_server(), eq_server()
+    got, want = [], []
+    for blk in eq_blocks[:k]:
+        plain.push_batch(blk)
+        piped.push_batch(blk)
+        want.append(plain.step(dt=dt)[0])
+        r = piped.step(pipelined=True, dt=dt)
+        if r is not None:
+            got.append(r[0])
+    got.append(piped.flush()[0])
+    check(len(got) == k and all(outputs_equal(torch, a, b) for a, b in zip(got, want)),
+          "step(pipelined=True) + flush() differs from the unpipelined sequence")
+    delta, snap = eq_server(), eq_server(ingest="snapshot")
+    for blk in eq_blocks[:k]:
+        delta.push_batch(blk)
+        snap.push_batch(blk)
+        check(outputs_equal(torch, delta.step(dt=dt)[0], snap.step(dt=dt)[0]),
+              "delta ingest differs from snapshot ingest at the matched rate")
+    row = 9
+    reset, fresh = eq_server(), eq_server(warmed=False)
+    reset.reset_stream(row)
+    for blk in eq_blocks[k : k + 3]:
+        reset.push_batch(blk[row : row + 1], streams=np.array([row]))
+        fresh.push_batch(blk[row : row + 1], streams=np.array([row]))
+        check(outputs_equal(torch, reset.step(dt=dt)[0], fresh.step(dt=dt)[0], row=row),
+              "after reset_stream, the row differs from a fresh server's")
+    for s in (singles_srv, multi, per_hop, plain, piped, delta, snap, reset, fresh):
+        s.close()
+    print(f"server equalities on the card at B={EQ_B} (torch.equal): step_multi(4) == 4 steps, "
+          f"per_hop == the hops, pipelined + flush == unpipelined, delta == snapshot, reset row == fresh row")
+
+    # (e) a B=CPU_B server on the card against one on the CPU, same pushes
+    gen.manual_seed(SEED + 2)
+    cpu_sig = host_audio(CPU_B, warm + CPU_HOPS * hop)
+    cpu_sig[3, warm + 2 * hop + 5] = np.nan
+    pair = {d: StreamServer(CPU_B, params, path="pallas", fast=True, device=d, buffer_seconds=2.0)
+            for d in ("cuda", "cpu")}
+    for s in pair.values():
+        s.push_batch(cpu_sig[:, :warm])
+        s.step(dt=dt)
+    flips = total = 0
+    worst = 0.0
+    for h in range(CPU_HOPS):
+        outs = {}
+        for d, s in pair.items():
+            s.push_batch(cpu_sig[:, warm + h * hop : warm + (h + 1) * hop])
+            outs[d] = s.step(dt=dt)
+        check(np.array_equal(outs["cuda"][1], outs["cpu"][1]), f"card and CPU servers' gains differ at hop {h}")
+        card, host = outs["cuda"][0], outs["cpu"][0]
+        pk_card, pk_host = card.peaks.cpu().numpy(), host.peaks.numpy()
+        agree = pk_card == pk_host
+        flips += int((~agree).sum())
+        total += agree.size
+        for name in ("x_vqt_smoothed", "x_vqt_afterglow", "calmness", "peak_center", "peak_size",
+                     "pitch_accuracy", "pitch_deviation"):
+            err = float(np.abs(getattr(card, name).cpu().numpy()[agree] - getattr(host, name).numpy()[agree]).max())
+            worst = max(worst, err)
+            check(err <= 1e-3, f"card vs CPU server: {name} {err} at hop {h}")
+        for name in ("scene_calmness", "tuning_inaccuracy"):
+            err = float(np.abs(getattr(card, name).cpu().numpy() - getattr(host, name).numpy()).max())
+            worst = max(worst, err)
+            check(err <= 1e-3, f"card vs CPU server: {name} {err} at hop {h}")
+    check(flips <= 2e-4 * total, f"card vs CPU server: {flips} of {total} peak bins flipped")
+    for s in pair.values():
+        s.close()
+    print(f"server on the card vs on the CPU, B={CPU_B}, {CPU_HOPS} hops: gains equal, max |diff| of the "
+          f"continuous outputs where the peaks agree {worst:.3e} (tol 1e-3), {flips} of {total} peak bins "
+          f"flipped (tol 2e-4)")
+    return server_counts
+
+
 def main() -> None:
     import torch
 
@@ -171,7 +476,7 @@ def main() -> None:
     from pitchvis_tpu_torch.ops.vqt import power_to_db
     from pitchvis_tpu_torch.ops.vqt_ref import vqt_frame_db_np
     from pitchvis_tpu_torch.stream.ring import RingState, ring_push, ring_push_plain, ring_window
-    from pitchvis_tpu_torch.utils import nvcc
+    from pitchvis_tpu_torch.utils import host_build, nvcc
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -181,8 +486,13 @@ def main() -> None:
 
     # ---- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    build_s = nvcc.build_all()
-    print(f"build: {json.dumps(build_s)} wall {time.perf_counter() - t0:.2f} s")
+    # the server's native ingest library (g++) builds beside the kernels (nvcc)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host_lib = pool.submit(host_build.library_path, "pitchvis_native")
+        build_s = nvcc.build_all()
+        host_lib.result()
+    print(f"build: {json.dumps(build_s)} wall {time.perf_counter() - t0:.2f} s; "
+          f"native ingest library: {host_build.build_logs.get('pitchvis_native', 'already built').splitlines()[-1]}")
     for src, log in nvcc.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -677,6 +987,14 @@ def main() -> None:
           f"(tol 1e-4), launches {counts()}")
     check(err_s <= 1e-3 and err_g <= 1e-4, "streaming golden replay out of tolerance")
     check(counts() == {"vqt": n_hops, "peaks": 2 * n_hops, "agc": n_hops}, "golden replay skipped a kernel")
+
+    # ---- 5. the serving runtime ----------------------------------------------
+    server_counts = serving_phase(torch, params, counts, reset_counts)
+    for label, key in (("vqt_power_bf16", "vqt"), ("vqt_power_f32", "vqt"), ("peaks", "peaks"), ("agc", "agc")):
+        by_path = {"pipeline": kernels[label]["launches"],
+                   "server": server_counts[key] if label != "vqt_power_f32" else 0}
+        kernels[label]["launches_by_path"] = by_path
+        kernels[label]["launches"] = sum(by_path.values())
 
     order = ("vqt_power_bf16", "vqt_power_f32", "peaks", "agc")
     print(json.dumps({"vqt_times": vqt_times}))

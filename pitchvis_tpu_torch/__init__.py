@@ -2,9 +2,12 @@
 
 The streaming hop (ring + AGC -> fused VQT -> analysis) runs on an NVIDIA
 H100 through three hand-written CUDA kernels (csrc/: VQT, peak primitives,
-AGC), each with a plain PyTorch version that runs for CPU tensors. Entry
-points run on the card unless given ``device="cpu"``. The package imports
-nothing of the JAX package; the modules it needs from there are copied.
+AGC), each with a plain PyTorch version that runs for CPU tensors. The
+serving runtime (``StreamServer``, ``ServeLoop``; runtime/) feeds the same
+VQT and analysis from a native ingest ring bank with AGC in C++ on the host
+(native/, built with g++ at first use). Entry points run on the card unless
+given ``device="cpu"``. The package imports nothing of the JAX package; the
+modules it needs from there are copied.
 """
 
 from .core.config import (
@@ -41,6 +44,8 @@ from .ops.vqt import (
     vqt_power_batch,
 )
 from .ops.vqt_pallas import PallasVqtArrays, vqt_db_pallas, vqt_power_pallas
+from .runtime.loop import ServeLoop
+from .runtime.server import StreamServer
 
 __all__ = [
     "AgcParameters",
@@ -76,4 +81,6 @@ __all__ = [
     "PallasVqtArrays",
     "vqt_db_pallas",
     "vqt_power_pallas",
+    "ServeLoop",
+    "StreamServer",
 ]

@@ -3,9 +3,9 @@
 Nothing here imports JAX: the caller hands over ``np.asarray`` of the JAX
 package's arrays (a bf16 array arrives as NumPy's ``bfloat16`` extension
 dtype and is reinterpreted bit for bit). With these a test starts both
-packages from the same weights and the same mid-stream state. Like every
-entry point, these put their tensors on the card unless given
-``device="cpu"``, and raise without CUDA.
+packages from the same weights and the same mid-stream state, a pipeline's
+or a server's. Like every entry point, these put their tensors on the card
+unless given ``device="cpu"``, and raise without CUDA.
 """
 
 from __future__ import annotations
@@ -102,3 +102,29 @@ def pipeline_state_to_numpy(state: PipelineState) -> dict:
     for k in ANALYSIS_LEAVES:
         out[k] = tensor_to_numpy(getattr(state.analysis, k))
     return out
+
+
+def server_state_from_numpy(server, rings, analysis: dict, window=None) -> None:
+    """Carries a JAX ``StreamServer``'s state into a port ``StreamServer``
+    of the same shape, so the port continues it mid-stream.
+
+    ``rings`` is the JAX server's ``NativeRingBank.export_state()`` (audio,
+    heads, gains); ``analysis`` holds its analysis carries by the names of
+    ANALYSIS_LEAVES; ``window`` is its rolling window on the device (delta
+    ingest; a bf16 window becomes f32 exactly). With a window the read
+    cursors are set to the write heads, so take the state where the JAX
+    server has consumed all the audio it was given (after a step, before
+    the next push). Without one, the port's next step re-materializes the
+    window from the ring, as after a restore."""
+    audio, heads, gains = rings
+    server.rings.import_state(audio, heads, gains)
+    state = AnalysisState(
+        **{k: tensor_from_numpy(analysis[k], server.device).float() for k in ANALYSIS_LEAVES}
+    )
+    with server._state_lock:
+        server.analysis_state = state
+        if window is None:
+            server._window = None
+        else:
+            server._window = tensor_from_numpy(window, server.device).float()
+            server.rings.mark_consumed()

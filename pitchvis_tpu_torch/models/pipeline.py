@@ -45,6 +45,24 @@ def build_rebuilt_arrays(old_params, new_params, *, max_n_fft: int, path: str,
     return kernel, arrays, new_params.range != old_params.range
 
 
+def reset_state_row(state, fresh, idx: int):
+    """Overwrites batch row ``idx`` of every tensor of a carried state (a
+    tensor, or a dataclass of tensors and such dataclasses) with row 0 of the
+    freshly initialized (B=1) ``fresh`` of the same structure: the device
+    side of stream-slot recycling (StreamingPipeline.reset_stream,
+    runtime/server.py::StreamServer.reset_stream). Functional: each tensor is
+    cloned before the write, so a tensor that a caller captured earlier (an
+    in-flight hop, outputs already returned) never changes."""
+    if isinstance(state, torch.Tensor):
+        out = state.clone()
+        out[idx] = fresh[0]
+        return out
+    return type(state)(**{
+        f.name: reset_state_row(getattr(state, f.name), getattr(fresh, f.name), idx)
+        for f in fields(state)
+    })
+
+
 @dataclass
 class PipelineState:
     ring: RingState
@@ -111,6 +129,24 @@ def _stack(items):
     return type(first)(**{f.name: _stack([getattr(it, f.name) for it in items]) for f in fields(first)})
 
 
+def _no_hops(state: PipelineState, n_buckets: int) -> PipelineOutputs:
+    """The outputs of zero hops: each leaf has the shape and type of one
+    hop's, behind a leading axis of 0 (what lax.scan returns for K=0)."""
+    b = state.ring.buffer.shape[0]
+    device = state.ring.buffer.device
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty((0, b, *shape), dtype=dtype, device=device)
+
+    per_stream = ("scene_calmness", "tuning_inaccuracy")
+    analysis = AnalysisOutputs(**{
+        f.name: empty() if f.name in per_stream
+        else empty(n_buckets, dtype=torch.bool if f.name == "peaks" else torch.float32)
+        for f in fields(AnalysisOutputs)
+    })
+    return PipelineOutputs(x_vqt=empty(n_buckets), gain=empty(), analysis=analysis)
+
+
 def pipeline_step_multi(
     vqt_arrays,
     state: PipelineState,
@@ -119,13 +155,14 @@ def pipeline_step_multi(
     **kwargs,
 ) -> tuple[PipelineState, PipelineOutputs]:
     """K hops in order (the JAX package's lax.scan over the hop axis).
-    chunks: (K, B, hop). Outputs are stacked along a leading K axis."""
+    chunks: (K, B, hop). Outputs are stacked along a leading K axis; K=0
+    leaves the state as it was and returns outputs with a leading axis of 0."""
     outs = []
     for chunk in chunks:
         state, out = pipeline_step(vqt_arrays, state, chunk, dt, **kwargs)
         outs.append(out)
     if not outs:
-        raise ValueError("step_multi needs at least one hop")
+        return state, _no_hops(state, kwargs["vqt_params"].n_buckets)
     return state, _stack(outs)
 
 
@@ -217,16 +254,4 @@ class StreamingPipeline:
             1, self.vqt_params,
             buffer_len=int(self.state.ring.buffer.shape[1]), device=self.device,
         )
-
-        def reset(part, fresh_part):
-            leaves = {}
-            for f in fields(part):
-                leaf = getattr(part, f.name).clone()
-                leaf[idx] = getattr(fresh_part, f.name)[0]
-                leaves[f.name] = leaf
-            return type(part)(**leaves)
-
-        self.state = PipelineState(
-            ring=reset(self.state.ring, fresh.ring),
-            analysis=reset(self.state.analysis, fresh.analysis),
-        )
+        self.state = reset_state_row(self.state, fresh, idx)

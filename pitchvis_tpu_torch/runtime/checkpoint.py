@@ -1,0 +1,265 @@
+"""Serving-state checkpoint and resume.
+
+Port of ``pitchvis_tpu/runtime/checkpoint.py``. A long-running multi-stream
+server wants its carried state (ring audio, AGC gains, EMA/calmness
+carries) to survive restarts; the parameter set is stored beside it so a
+restore can rebuild the matching kernel. The JAX package saves its carries
+through orbax, which needs JAX; the port saves them with ``np.savez`` and
+reads only its own checkpoints (the metadata files and the ring image have
+the JAX package's names and keys, the carries do not). Every save is
+staged and committed by renames, so a crash mid-save never destroys the
+previous checkpoint.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import shutil
+
+import numpy as np
+
+from ..convert import ANALYSIS_LEAVES, tensor_from_numpy, tensor_to_numpy
+from ..core.config import (
+    AgcParameters,
+    AnalysisParameters,
+    PeakDetectionParameters,
+    VqtParameters,
+    VqtRange,
+)
+from ..models.analysis import AnalysisState
+from ..models.pipeline import PipelineState
+from ..stream.ring import RingState
+
+
+def _stage_dir(path: str) -> str:
+    """Fresh staging directory next to ``path`` (same filesystem, so the
+    commit renames are atomic); a leftover from a crashed save is cleared."""
+    tmp = path + ".tmp"
+    if os.path.isdir(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    return tmp
+
+
+def _commit_dir(tmp: str, path: str) -> None:
+    """Crash-safe checkpoint commit: the fully written staging directory
+    replaces ``path`` by renames, so at every instant the disk holds the
+    complete previous checkpoint, the complete new one, or (between the two
+    renames) only ``path.old``, which the loaders fall back to."""
+    old = path + ".old"
+    if os.path.exists(path):
+        if os.path.isdir(old):
+            shutil.rmtree(old)
+        os.rename(path, old)
+    # with ``path`` absent (a prior save crashed between the renames and only
+    # ``path.old`` survives) the new generation goes in before ``path.old``
+    # is touched: clearing it first would leave no loadable checkpoint
+    os.rename(tmp, path)
+    if os.path.isdir(old):
+        shutil.rmtree(old)
+
+
+def _resolve_dir(path: str, marker: str) -> str:
+    """Where to load from: ``path`` when it holds a complete checkpoint (its
+    ``marker`` metadata is written last), else the ``path.old`` generation a
+    crash between _commit_dir's renames leaves behind."""
+    path = os.path.abspath(path)
+    if not os.path.exists(os.path.join(path, marker)) and os.path.exists(
+        os.path.join(path + ".old", marker)
+    ):
+        return path + ".old"
+    return path
+
+
+def _vqt_params_from_dict(d: dict) -> VqtParameters:
+    d = dict(d)
+    rng = d.pop("range")
+    return VqtParameters(range=VqtRange(**rng), **d)
+
+
+def _analysis_params_from_dict(d: dict) -> AnalysisParameters:
+    d = dict(d)
+    d["peak_config"] = PeakDetectionParameters(**d["peak_config"])
+    d["bassline_peak_config"] = PeakDetectionParameters(**d["bassline_peak_config"])
+    return AnalysisParameters(**d)
+
+
+def _analysis_arrays(state: AnalysisState) -> dict:
+    return {k: tensor_to_numpy(getattr(state, k)) for k in ANALYSIS_LEAVES}
+
+
+def _analysis_state(arrays, device) -> AnalysisState:
+    return AnalysisState(**{k: tensor_from_numpy(arrays[k], device) for k in ANALYSIS_LEAVES})
+
+
+# ---------------------------------------------------------------------------
+# StreamingPipeline (device ring + analysis carries)
+# ---------------------------------------------------------------------------
+
+
+def save_pipeline_state(
+    path: str,
+    state: PipelineState,
+    params: VqtParameters,
+    analysis_params: AnalysisParameters | None = None,
+    agc_params: AgcParameters | None = None,
+) -> None:
+    """Pass the pipeline's ``analysis_params``/``agc_params`` too when they
+    differ from the defaults: the restored carries are only meaningful under
+    the time constants and AGC target they were stepped with
+    (``load_pipeline_config`` returns them)."""
+    path = os.path.abspath(path)
+    tmp = _stage_dir(path)
+    np.savez(
+        os.path.join(tmp, "pipeline_state.npz"),
+        buffer=tensor_to_numpy(state.ring.buffer),
+        gain=tensor_to_numpy(state.ring.gain),
+        **_analysis_arrays(state.analysis),
+    )
+    meta = {
+        "params": dataclasses.asdict(params),
+        "analysis_params": (
+            dataclasses.asdict(analysis_params) if analysis_params is not None else None
+        ),
+        "agc_params": dataclasses.asdict(agc_params) if agc_params is not None else None,
+        "n_streams": int(state.ring.buffer.shape[0]),
+        "buffer_len": int(state.ring.buffer.shape[1]),
+        # the JAX package's keys for its ML and viewer carries, which the
+        # port's pipeline does not have yet
+        "ml_t_window": None,
+        "with_viewer": False,
+    }
+    with open(os.path.join(tmp, "pipeline_meta.json"), "w") as f:
+        json.dump(meta, f)
+    _commit_dir(tmp, path)
+
+
+def load_pipeline_config(
+    path: str,
+) -> tuple[VqtParameters, AnalysisParameters | None, AgcParameters | None]:
+    """The full parameter set a checkpointed pipeline ran under (analysis/
+    AGC entries are None for checkpoints saved without them)."""
+    with open(os.path.join(_resolve_dir(path, "pipeline_meta.json"), "pipeline_meta.json")) as f:
+        meta = json.load(f)
+    ap = meta.get("analysis_params")
+    gp = meta.get("agc_params")
+    return (
+        _vqt_params_from_dict(meta["params"]),
+        _analysis_params_from_dict(ap) if ap is not None else None,
+        AgcParameters(**gp) if gp is not None else None,
+    )
+
+
+def load_pipeline_state(path: str, device="cuda") -> tuple[PipelineState, VqtParameters]:
+    """The saved state on ``device`` (the card unless ``device="cpu"``) and
+    the VQT parameters it ran under."""
+    path = _resolve_dir(path, "pipeline_meta.json")
+    with open(os.path.join(path, "pipeline_meta.json")) as f:
+        meta = json.load(f)
+    params = _vqt_params_from_dict(meta["params"])
+    with np.load(os.path.join(path, "pipeline_state.npz")) as z:
+        state = PipelineState(
+            ring=RingState(buffer=tensor_from_numpy(z["buffer"], device), gain=tensor_from_numpy(z["gain"], device)),
+            analysis=_analysis_state(z, device),
+        )
+    if tuple(state.ring.buffer.shape) != (meta["n_streams"], meta["buffer_len"]):
+        raise ValueError(f"saved ring {tuple(state.ring.buffer.shape)} does not match its metadata")
+    return state, params
+
+
+# ---------------------------------------------------------------------------
+# StreamServer (native rings + analysis carries)
+# ---------------------------------------------------------------------------
+
+
+def save_server_state(path: str, server) -> None:
+    """Checkpoints a running StreamServer: the native ring bank image (audio
+    windows, total-written counters, AGC gains), the per-stream analysis
+    carries, and the parameter set and serving flags needed to rebuild the
+    matching kernel on restore.
+
+    The carries are captured first and the ring image after, not as one
+    atomic cut: streams that receive audio during the save may be up to one
+    hop newer in the ring than in the carries (restore replays that audio).
+    The opposite order would be unsafe: carries computed from audio absent
+    from the saved ring. Safe to call from the control plane while ingest
+    and step() continue."""
+    path = os.path.abspath(path)
+    tmp = _stage_dir(path)
+    with server._state_lock:
+        state = server.analysis_state
+        vqt_params = server.vqt_params
+        analysis_params = server.analysis_params
+    carries = _analysis_arrays(state)
+    audio, heads, gains = server.rings.export_state()
+    np.savez_compressed(os.path.join(tmp, "server_rings.npz"), audio=audio, heads=heads, gains=gains)
+    np.savez(os.path.join(tmp, "server_analysis_state.npz"), **carries)
+    meta = {
+        "vqt_params": dataclasses.asdict(vqt_params),
+        "analysis_params": dataclasses.asdict(analysis_params),
+        "n_streams": server.n_streams,
+        "capacity": server.rings.capacity,
+        "path": server.path,
+        "fast": server.fast,
+        "ingest": server.ingest,
+        "hop": server._hop,
+        "max_lag": server._max_lag,
+        "max_catchup": server._max_catchup,
+        # the JAX server's fused output stages, which the port's server does
+        # not have yet
+        "with_led": False,
+        "with_viewer": False,
+        "fetch": "full",
+        "ml_t_window": None,
+        "has_ml_state": False,
+    }
+    with open(os.path.join(tmp, "server_meta.json"), "w") as f:
+        json.dump(meta, f)
+    _commit_dir(tmp, path)
+
+
+def restore_server(path: str, ml_model=None, ml_params=None, mesh=None, device="cuda"):
+    """Rebuilds a StreamServer from save_server_state on ``device`` (the
+    card unless ``device="cpu"``): the same parameters and serving config,
+    the ring audio, write positions and AGC gains, and the analysis
+    carries, so trajectories continue where the dead process left off. The
+    window is re-materialized from the ring on the first step. Producers
+    re-attach to their previous slots afterwards. ``ml_model``/
+    ``ml_params``/``mesh`` are the JAX signature's and raise
+    NotImplementedError, as the server does."""
+    from .server import StreamServer
+
+    path = _resolve_dir(path, "server_meta.json")
+    with open(os.path.join(path, "server_meta.json")) as f:
+        meta = json.load(f)
+    vqt_params = _vqt_params_from_dict(meta["vqt_params"])
+    analysis_params = _analysis_params_from_dict(meta["analysis_params"])
+
+    server = StreamServer(
+        meta["n_streams"],
+        vqt_params,
+        analysis_params,
+        buffer_seconds=meta["capacity"] / vqt_params.sr,
+        path=meta["path"],
+        fast=meta["fast"],
+        ingest=meta.get("ingest", "delta"),
+        hop_seconds=meta.get("hop", int(vqt_params.sr / 60.0)) / vqt_params.sr,
+        max_lag_seconds=meta.get("max_lag", int(vqt_params.sr * 0.25)) / vqt_params.sr,
+        max_catchup_hops=meta.get("max_catchup", 1),
+        ml_model=ml_model,
+        ml_params=ml_params,
+        mesh=mesh,
+        device=device,
+    )
+    if server.rings.capacity != meta["capacity"]:  # rounding drift
+        raise RuntimeError(f"restored capacity {server.rings.capacity} != saved {meta['capacity']}")
+    # the exact integers, past the float seconds round trip
+    server._hop = int(meta["hop"])
+    server._max_lag = int(meta["max_lag"])
+    with np.load(os.path.join(path, "server_rings.npz")) as rings:
+        server.rings.import_state(rings["audio"], rings["heads"], rings["gains"])
+    with np.load(os.path.join(path, "server_analysis_state.npz")) as z:
+        server.analysis_state = _analysis_state(z, server.device)
+    return server

@@ -56,13 +56,19 @@ def nvcc_path() -> str:
     return path
 
 
-def _target(name: str) -> tuple[str, list[str]]:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
+def source_digest(src: str, flags: list[str]) -> str:
+    """Short hash of a source file and its compiler flags: the part of a
+    built library's file name that keeps an edited source from being served
+    by a stale build."""
     with open(src, "rb") as f:
         text = f.read()
+    return hashlib.sha1(text + " ".join(flags).encode()).hexdigest()[:12]
+
+
+def _target(name: str) -> tuple[str, list[str]]:
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
     flags = ARCH_FLAGS + BASE_FLAGS + EXTRA_FLAGS[name]
-    digest = hashlib.sha1(text + " ".join(flags).encode()).hexdigest()[:12]
-    out = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    out = os.path.join(BUILD_DIR, f"lib{name}_{source_digest(src, flags)}.so")
     return out, [nvcc_path(), *flags, "-o", out, src]
 
 

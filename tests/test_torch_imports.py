@@ -49,7 +49,7 @@ def test_no_jax_imports(path):
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
-@pytest.mark.parametrize("entry", ["pipeline", "vqt", "arrays"])
+@pytest.mark.parametrize("entry", ["pipeline", "vqt", "arrays", "server"])
 def test_entry_points_raise_without_cuda(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     params = to_port(SMALL_PARAMS)
@@ -58,6 +58,8 @@ def test_entry_points_raise_without_cuda(entry, monkeypatch):
             pt.StreamingPipeline(2, params, path="pallas")
         elif entry == "vqt":
             pt.Vqt(params, path="pallas")
+        elif entry == "server":
+            pt.StreamServer(2, params, buffer_seconds=1.0, path="pallas", fast=True)
         else:
             pt.make_vqt_arrays(pt.get_kernel(params), path="pallas")
 

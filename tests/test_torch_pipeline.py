@@ -231,3 +231,74 @@ def test_constructors_default_to_the_card(name):
             make()
     leaves = _leaves(make(device="cpu"))
     assert leaves and all(leaf.device.type == "cpu" for leaf in leaves)
+
+
+DT_FORMS = {
+    "float": lambda: DT,
+    "numpy_scalar": lambda: np.float32(DT),
+    "numpy_array": lambda: np.array([DT, 0.5 * DT, 2.0 * DT], np.float32),
+    "list": lambda: [DT, 0.5 * DT, 2.0 * DT],
+    "tensor": lambda: torch.tensor([DT, 0.5 * DT, 2.0 * DT]),
+}
+
+
+@pytest.mark.parametrize("form", sorted(DT_FORMS))
+def test_dt_forms_match_jax(form):
+    """dt as a float, a NumPy scalar, a per-stream NumPy array, a list and a
+    tensor: the port's step broadcasts each as the JAX package's does
+    (jnp.broadcast_to), within test_hop_matches_jax's tolerances."""
+    sig = _audio()
+    jp = JaxPipeline(B, SMALL_PARAMS, path="pallas")
+    tp = StreamingPipeline(B, to_port(SMALL_PARAMS), path="pallas", device="cpu")
+    for h in range(4):
+        chunk = sig[:, h * HOP : (h + 1) * HOP]
+        dt = DT_FORMS[form]()
+        jo = jp.step(chunk, dt.numpy() if isinstance(dt, torch.Tensor) else dt)
+        to = tp.step(chunk, dt)
+    np.testing.assert_array_equal(to.analysis.peaks.numpy(), np.asarray(jo.analysis.peaks))
+    for k in ANALYSIS_LEAVES:
+        np.testing.assert_allclose(getattr(tp.state.analysis, k).numpy(), np.asarray(getattr(jp.state.analysis, k)),
+                                   atol=1e-3, err_msg=k)
+
+
+def test_step_multi_zero_hops_matches_jax():
+    """Zero hops: outputs with a leading axis of 0 and the shapes and types
+    of one hop's, as the JAX lax.scan returns them; the state as it was."""
+    sig = _audio()
+    jp = JaxPipeline(B, SMALL_PARAMS, path="pallas")
+    tp = StreamingPipeline(B, to_port(SMALL_PARAMS), path="pallas", device="cpu")
+    jp.step(sig[:, :HOP], DT)
+    tp.step(sig[:, :HOP], DT)
+    before = pipeline_state_to_numpy(tp.state)
+    jax_before = _jax_state(jp)
+    none = np.zeros((0, B, HOP), np.float32)
+    jo = jp.step_multi(none, DT)
+    to = tp.step_multi(none, DT)
+    pairs = [(to.x_vqt, jo.x_vqt), (to.gain, jo.gain)] + [
+        (getattr(to.analysis, f.name), getattr(jo.analysis, f.name)) for f in dataclasses.fields(to.analysis)]
+    for got, want in pairs:
+        assert tuple(got.shape) == tuple(np.asarray(want).shape)
+        assert got.numpy().dtype == np.asarray(want).dtype
+    assert to.x_vqt.shape == (0, B, SMALL_PARAMS.n_buckets)
+    for k, v in pipeline_state_to_numpy(tp.state).items():
+        np.testing.assert_array_equal(v, before[k], err_msg=k)
+    for k, v in _jax_state(jp).items():
+        np.testing.assert_array_equal(v, jax_before[k], err_msg=k)
+
+
+@pytest.mark.parametrize("scene", [0.0, 0.25, 0.731], ids=["silent_scene", "quarter", "calm"])
+def test_smoothing_horizons_equal_jax(scene):
+    """The smoothing horizons are floors of products that are whole numbers
+    of ms at some bins (bin 420 at scene calmness 0 and default parameters):
+    their bits decide the floor, so the port's equal the JAX package's bit
+    for bit. On the card the quotients behind them are divided exactly
+    (models/analysis.py::_exact_div); chip_smoke.py holds a card server
+    against a CPU server on the same audio."""
+    from pitchvis_tpu.models.analysis import _smoothing_horizons as jax_horizons
+    from pitchvis_tpu_torch.models.analysis import _smoothing_horizons
+
+    params = default_params()
+    ap = AnalysisParameters()
+    want = np.asarray(jax_horizons(ap, params.range, jnp.float32(scene)))
+    got = _smoothing_horizons(to_port(ap), to_port(params.range), torch.full((1,), scene))[0].numpy()
+    np.testing.assert_array_equal(got, want)

@@ -1,16 +1,24 @@
 """Shared helpers of the tests that hold pitchvis_tpu_torch against
 pitchvis_tpu: parameter conversion between the two packages' (identical)
-config dataclasses and seeded input signals, made with NumPy so both
-packages see the same bits."""
+config dataclasses, seeded input signals, made with NumPy so both packages
+see the same bits, and a fixture that makes the JAX package's native
+library safe to load from several test workers at once."""
 
 from __future__ import annotations
 
 import dataclasses
+import fcntl
+import os
+import subprocess
+import time
 
 import numpy as np
+import pytest
 
 import pitchvis_tpu.core.config as jcfg
 import pitchvis_tpu_torch.core.config as tcfg
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def to_port(obj):
@@ -246,3 +254,32 @@ def ring_push_kernel_emulation(buffer, gain, chunk, k, inv_rms, silence, *, src_
     new_gain[good] = g
     assert (written == 1).all(), "every output float written exactly once"
     return dst_mem.reshape(b_rows, length), new_gain
+
+
+@pytest.fixture(scope="session")
+def jax_native_lib():
+    """The JAX package's native library, built before this worker's first
+    JAX native load: ``make -C native`` under an exclusive lock on a file in
+    build/ (shared by every test worker that uses this fixture), retried
+    until the library loads. The JAX loader (pitchvis_tpu/runtime/native.py)
+    runs ``make`` unlocked at first use and remembers a failure for the rest
+    of the process, so a worker that lost a build race to another would
+    fail every JAX server test it runs; its memory of that failure is
+    cleared here once the library loads."""
+    from pitchvis_tpu.runtime import native as jax_native
+
+    native_dir = os.path.join(_ROOT, "native")
+    lock_dir = os.path.join(_ROOT, "build")
+    os.makedirs(lock_dir, exist_ok=True)
+    with open(os.path.join(lock_dir, "jax_native_make.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        for _ in range(5):
+            if jax_native._lib is not None:
+                break
+            jax_native._tried = False
+            if jax_native.available():
+                break
+            subprocess.run(["make", "-C", native_dir], capture_output=True, timeout=300)
+            time.sleep(1.0)
+    assert jax_native._lib is not None, "native/libpitchvis_native.so did not build or load"
+    return jax_native
