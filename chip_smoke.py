@@ -60,10 +60,27 @@ toolkit (nvcc). Phases, each of which fails the run on any error:
    against one on the CPU for 8 hops (gains equal; continuous outputs within
    1e-3 where the peaks agree, at most 2e-4 of the peak bins flipped).
 
+6. runs the output stages (LED colors and the viewer's display outputs):
+   StreamingPipeline(2048, path="pallas", fast=True, with_led=True,
+   with_viewer=True) for 16 hops after two of warm-up, beside the bare
+   pipeline on the same audio right after; the stages alone
+   (models/pipeline.py::derived_stages, both, LED only, viewer only) under
+   the profiler for their launches and device ms, and by the host clock for
+   their enqueue; one hop under set_sync_debug_mode("error"); the stages on
+   the card against the CPU on one hop's analysis outputs and ball carry
+   (floats atol 1e-5, positions 1e-4, u8 one level in at most 1e-5 of the
+   values, booleans equal); tests/golden/chain_golden.npz (four signals as
+   four streams, LED stage, 600 hops) and viewer_golden.npz (two signals,
+   both stages, 360 hops) through the f32 fused path, held to the JAX
+   ingest-server test's budget and the framing of the serial byte stream;
+   and a StreamServer(2048, fetch="led") whose CompactOutputs.led equals a
+   with_led server's (torch.equal) on the same pushes, with its hop time.
+
 It prints a JSON line of the VQT's times by part, one of the analysis step's
-launches and times, one of per-kernel numbers (``launches`` summed over the
-pipeline's and the server's measured hops, ``launches_by_path`` each), then
-the nvidia-smi line, and as its last line ``{"ok": true, "device": {...}}``.
+launches and times, one of the output stages' numbers, one of per-kernel
+numbers (``launches`` summed over the pipeline's, the server's and the
+output-stage pipeline's measured hops, ``launches_by_path`` each), then the
+nvidia-smi line, and as its last line ``{"ok": true, "device": {...}}``.
 Without CUDA it exits 1 and prints no result.
 """
 
@@ -90,6 +107,23 @@ EQ_B = 256  # the server's equalities on the card
 CPU_B = 64  # the server on the card against one on the CPU
 CPU_HOPS = 8
 LOOP_S = 2.0
+STAGE_HOPS = 16  # phase 6: hops of the pipeline with the output stages
+
+# phase 6 tolerances. Card against CPU on the same inputs, those that the CPU
+# tests state against the JAX package (tests/test_torch_led.py,
+# test_torch_viewer.py): floats atol 1e-5, ball positions 1e-4, u8 values
+# within one level in at most 1e-5 of them, booleans exactly.
+STAGE_ATOL = 1e-5
+POSITION_ATOL = 1e-4
+STAGE_U8_SHARE = 1e-5
+# golden replays: the chain keys at tests/test_chain_golden.py::
+# TestIngestServerPath's budget; the viewer keys on the frames where every
+# peak agrees at tests/test_torch_outputs.py's (visibility exactly, u8 values
+# within one level in at most 1e-4 of them, other floats within 1e-3: the
+# f32 replay drifts some 3e-5 on the CPU, an ulp of the spiral angle in sin
+# and cos)
+GOLDEN_U8_SHARE = 1e-4
+GOLDEN_FLOAT_ATOL = 1e-3
 
 # NVIDIA H100 SXM data sheet (dense): HBM bytes/s, FFMA, tf32 and bf16 tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -143,17 +177,22 @@ def device_trace(torch, fn, kernel: str | None = None, inner: int = 1, ops: list
     whose name contains it, their mean device time in ms), the time of one
     such kernel on the card alone. Without: (all events, their summed device
     time in ms). Appends (name, device ms) of each such event to ``ops`` if
-    given. Fails if the profiler saw no such event."""
+    given. The profiler now and then records no device event of a window:
+    such a trace is taken again, up to three times in all. Fails if the
+    profiler saw no such event."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(inner):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA and (kernel is None or kernel in e.name)]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(inner):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and (kernel is None or kernel in e.name)]
+        if events:
+            break
     if ops is not None:
         ops.extend((e.name, e.device_time_total / 1e3) for e in events)
     times_us = [e.device_time_total for e in events]
@@ -275,7 +314,7 @@ def serving_phase(torch, params, counts, reset_counts) -> dict:
         t0 = time.perf_counter()
         srv.push_batch(blocks[h])
         t1 = time.perf_counter()
-        plan, vqt_params, state, window = srv._capture()
+        plan, vqt_params, (state, balls), window = srv._capture()
         slot, _, adv = srv._consume_hop()
         t2 = time.perf_counter()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
@@ -292,7 +331,7 @@ def serving_phase(torch, params, counts, reset_counts) -> dict:
         new_state, _ = analysis_step_batch(plan.analysis_params, plan.rng, state, x_vqt, dt_b)
         ev[4].record()
         torch.cuda.synchronize()
-        check(srv._writeback(vqt_params, new_state, rolled), "split hop: write-back refused")
+        check(srv._writeback(vqt_params, (new_state, balls), rolled), "split hop: write-back refused")
         for key, v in (("push_batch", t1 - t0), ("consume", t2 - t1), ("copy_enqueue", t3 - t2)):
             split[key].append(v * 1e3)
         for i, key in enumerate(("h2d_copy", "roll", "vqt + dB", "analysis (peaks x2)")):
@@ -458,6 +497,317 @@ def serving_phase(torch, params, counts, reset_counts) -> dict:
           f"continuous outputs where the peaks agree {worst:.3e} (tol 1e-3), {flips} of {total} peak bins "
           f"flipped (tol 2e-4)")
     return server_counts
+
+
+def u8_close(got, want, share: float, what: str) -> tuple[float, float]:
+    """u8 levels (or floats holding levels) within one level of each other
+    in at most ``share`` of the values; returns (max diff, share moved)."""
+    d = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    moved = float((d > 0).mean()) if d.size else 0.0
+    check(d.size == 0 or d.max() <= 1.0, f"{what}: a u8 level moved by {d.max()}")
+    check(moved <= share, f"{what}: {moved:.2e} of the levels moved (tol {share})")
+    return (float(d.max()) if d.size else 0.0), moved
+
+
+def leaves(tree, prefix="") -> dict:
+    """{dotted path: tensor} of every tensor of an output dataclass tree."""
+    import dataclasses
+
+    if tree is None:
+        return {}
+    if not dataclasses.is_dataclass(tree):
+        return {prefix: tree}
+    out = {}
+    for f in dataclasses.fields(tree):
+        out.update(leaves(getattr(tree, f.name), f"{prefix}.{f.name}" if prefix else f.name))
+    return out
+
+
+def stages_close(torch, got: dict, want: dict, what: str) -> dict:
+    """The output stages' leaves of the card (``got``) against the CPU's
+    (``want``) at the phase 6 tolerances; returns the largest difference of
+    the float leaves, of the positions and of the u8 leaves, and the largest
+    share of u8 values moved."""
+    worst = {"floats": 0.0, "positions": 0.0, "u8_levels": 0.0, "u8_share_moved": 0.0}
+    check(set(got) == set(want), f"{what}: leaves {sorted(got)} vs {sorted(want)}")
+    for path, g in got.items():
+        g, w = g.cpu().numpy(), want[path].cpu().numpy()
+        check(g.shape == w.shape and g.dtype == w.dtype, f"{what} {path}: {g.shape} {g.dtype} vs {w.shape} {w.dtype}")
+        if g.dtype == np.bool_:
+            check(np.array_equal(g, w), f"{what} {path}: {int((g != w).sum())} booleans differ")
+        elif g.dtype == np.uint8 or path.endswith("rgba"):
+            if g.dtype != np.uint8:  # RGB in levels of 1/255, then alpha
+                err = float(np.abs(g[..., 3] - w[..., 3]).max())
+                check(err <= STAGE_ATOL, f"{what} {path} alpha: {err}")
+                worst["floats"] = max(worst["floats"], err)
+                g, w = np.round(g[..., :3] * 255.0), np.round(w[..., :3] * 255.0)
+            levels, moved = u8_close(g, w, STAGE_U8_SHARE, f"{what} {path}")
+            worst["u8_levels"] = max(worst["u8_levels"], levels)
+            worst["u8_share_moved"] = max(worst["u8_share_moved"], moved)
+        else:
+            key, tol = ("positions", POSITION_ATOL) if path.endswith("position") else ("floats", STAGE_ATOL)
+            err = float(np.abs(g - w).max()) if g.size else 0.0
+            check(np.isfinite(g).all() and err <= tol, f"{what} {path}: {err} (tol {tol})")
+            worst[key] = max(worst[key], err)
+    return worst
+
+
+def golden_phase(torch, counts, reset_counts) -> dict:
+    """Phase 6 (c): the committed chain and viewer goldens through the port's
+    StreamingPipeline on the card, f32 (fast=False), at the serial
+    parameters: the four chain signals as four streams with the LED stage
+    for 600 hops, the two viewer signals as two streams with both stages for
+    360. Returns their numbers."""
+    from pitchvis_tpu_torch import StreamingPipeline
+    from pitchvis_tpu_torch.core.config import SERIAL_VQT_PARAMETERS as serial
+    from pitchvis_tpu_torch.io.led import frame_bytes
+
+    hop = int(serial.sr / 60.0)
+    n = serial.n_buckets
+    result = {}
+    for file, names, with_viewer in (("chain_golden.npz", ("arpeggio", "chirp", "chord", "synth"), False),
+                                      ("viewer_golden.npz", ("arpeggio", "chord"), True)):
+        with np.load(os.path.join(ROOT, "tests", "golden", file)) as z:
+            g = {k: z[k] for k in z.files}
+        sig = np.stack([g[f"in_{name}"] for name in names])
+        k_total = sig.shape[1] // hop
+        pipe = StreamingPipeline(len(names), serial, path="pallas", fast=False, with_led=True,
+                                 with_viewer=with_viewer, device="cuda")
+        rec = {}
+        reset_counts()
+        t = time.perf_counter()
+        for i in range(k_total):
+            out = pipe.step(sig[:, i * hop : (i + 1) * hop], hop / serial.sr)
+            hop_leaves = {"peaks": out.analysis.peaks, "calmness": out.analysis.calmness,
+                          "scene_calmness": out.analysis.scene_calmness, "led": out.led}
+            hop_leaves.update({f"viewer.{k}": v for k, v in leaves(out.viewer).items()})
+            for key, v in hop_leaves.items():
+                rec.setdefault(key, []).append(v)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        check(counts() == {"vqt": k_total, "peaks": 2 * k_total, "agc": k_total},
+              f"{file}: launches {counts()} for {k_total} hops")
+        rec = {key: torch.stack(v, dim=1).cpu().numpy() for key, v in rec.items()}
+        del pipe
+        worst = {"flips": 0.0, "calmness": 0.0, "scene_calmness": 0.0, "led": 0}
+        viewer_worst = {}
+        for b, name in enumerate(names):
+            flips = rec["peaks"][b] != g[f"{name}_peaks"]
+            calm = float(np.abs(rec["calmness"][b] - g[f"{name}_calmness"]).max())
+            scene = float(np.abs(rec["scene_calmness"][b] - g[f"{name}_scene_calmness"]).max())
+            led_diff = np.abs(rec["led"][b].astype(np.int32) - g[f"{name}_led"].astype(np.int32))
+            led = int(led_diff[~flips].max())
+            check(flips.mean() <= 2e-4 and calm <= 0.02 and scene <= 5e-3 and led <= 4,
+                  f"{file} {name}: peak flips {flips.mean():.2e} (tol 2e-4), calmness {calm} (0.02), "
+                  f"scene calmness {scene} (5e-3), LED {led} levels where the peaks agree (4)")
+            # the framed serial byte stream, rebuilt with the port's frame_bytes
+            stream = np.frombuffer(b"".join(frame_bytes(f) for f in rec["led"][b]), np.uint8)
+            frames = stream.reshape(-1, 3 + 3 * n)
+            check(stream.size == g[f"{name}_stream"].size and (frames[:, 0] == 0xFF).all()
+                  and (frames[:, 1] == n // 256).all() and (frames[:, 2] == n % 256).all()
+                  and (frames[:, 3:] <= 0xFE).all(), f"{file} {name}: serial byte stream framing")
+            for key, v in zip(worst, (float(flips.mean()), calm, scene, led)):
+                worst[key] = max(worst[key], v)
+            if not with_viewer:
+                continue
+            agree = ~flips.any(axis=1)
+            check(agree.mean() > 0.99, f"{file} {name}: {agree.mean():.3f} of the frames agree on every peak")
+            golden_keys = {"balls.position": "ball_position", "balls.rgba": "ball_rgba", "balls.scale": "ball_scale",
+                           "balls.visible": "ball_visible", "balls.calmness": "ball_calmness",
+                           "balls.pitch_accuracy": "ball_pitch_accuracy",
+                           "balls.pitch_deviation": "ball_pitch_deviation", "chroma": "chroma", "bloom": "bloom",
+                           "spectrogram_row": "spectrogram_row", "bass.visible": "bass_visible",
+                           "bass.rgba": "bass_rgba", "calmness_histogram.heights": "hist_heights",
+                           "calmness_histogram.segment_rgb": "hist_segment_rgb"}
+            for path, key in golden_keys.items():
+                got, want = rec[f"viewer.{path}"][b][agree], g[f"{name}_{key}"][agree]
+                what = f"{file} {name} {key}"
+                if got.dtype == np.bool_:
+                    check(np.array_equal(got, want), f"{what}: {int((got != want).sum())} differ")
+                    err = 0.0
+                elif got.dtype == np.uint8:
+                    err, _ = u8_close(got, want, GOLDEN_U8_SHARE, what)
+                elif path.endswith("rgba"):
+                    u8_close(np.round(got[..., :3] * 255.0), np.round(want[..., :3] * 255.0), GOLDEN_U8_SHARE, what)
+                    err = float(np.abs(got[..., 3] - want[..., 3]).max())
+                else:
+                    err = float(np.abs(got - want).max())
+                check(err <= (1.0 if got.dtype == np.uint8 else GOLDEN_FLOAT_ATOL), f"{what}: {err}")
+                viewer_worst[key] = max(viewer_worst.get(key, 0.0), err)
+        label = "viewer_golden" if with_viewer else "chain_golden"
+        result[label] = dict(worst, hops=k_total, streams=len(names), seconds=secs, **(
+            {"viewer_max_err": viewer_worst} if with_viewer else {}))
+        print(f"{file} on the card ({len(names)} streams, {k_total} hops, f32, {secs:.1f} s): peak flips "
+              f"{worst['flips']:.2e} (tol 2e-4), calmness {worst['calmness']:.3e} (0.02), scene calmness "
+              f"{worst['scene_calmness']:.3e} (5e-3), LED {worst['led']} levels where the peaks agree (4), "
+              f"serial stream framing checked"
+              + (f"; viewer keys max |diff| {json.dumps(viewer_worst)}" if with_viewer else ""))
+    return result
+
+
+def output_stages_phase(torch, params, counts, reset_counts, gen) -> tuple[dict, dict]:
+    """Phase 6: StreamingPipeline(2048, path="pallas", fast=True, with_led=True,
+    with_viewer=True) for STAGE_HOPS hops after two of warm-up, beside the bare
+    pipeline on the same audio; the output stages alone under the profiler;
+    a hop under set_sync_debug_mode("error"); the stages on the card against
+    the CPU on one hop's inputs; the golden replays; a fetch="led" server
+    against a with_led one. Returns (the stage path's launch counts, the
+    phase's numbers)."""
+    from pitchvis_tpu_torch import CompactOutputs, StreamingPipeline, StreamServer
+    from pitchvis_tpu_torch.models.analysis import AnalysisOutputs
+    from pitchvis_tpu_torch.models.pipeline import derived_stages
+    from pitchvis_tpu_torch.models.viewer import BallState
+
+    sr = params.sr
+    hop = int(sr / 60.0)
+    dt = hop / sr
+    warm = 2
+    audio = synthetic_audio(torch, B, (warm + STAGE_HOPS + 2) * hop, sr, gen)
+    audio[7] = 0.0  # a silent stream: no peaks, an all-zero LED frame
+    audio[5, 3 * hop + 11] = float("nan")
+
+    def chunk(h):
+        return audio[:, h * hop : (h + 1) * hop]
+
+    def run(pipe, counted):
+        for h in range(warm):
+            pipe.step(chunk(h), dt)
+        torch.cuda.synchronize()
+        if counted:
+            reset_counts()
+        ms = []
+        for h in range(warm, warm + STAGE_HOPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = pipe.step(chunk(h), dt)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return out, ms, (counts() if counted else None)
+
+    # (a) the hop with the output stages, then the bare hop on the same audio
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = StreamingPipeline(B, params, path="pallas", fast=True, with_led=True, with_viewer=True, device="cuda")
+    out, stage_ms, stage_counts = run(pipe, True)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    want = {"vqt": STAGE_HOPS, "peaks": 2 * STAGE_HOPS, "agc": STAGE_HOPS}
+    check(stage_counts == want, f"output stages path: launches {stage_counts}, expected {want}")
+    n = params.n_buckets
+    check(out.led.dtype == torch.uint8 and tuple(out.led.shape) == (B, n, 3), f"LED {out.led.dtype} {out.led.shape}")
+    check(int(out.led.max()) <= 0xFE and int(out.led[7].max()) == 0, "LED: a value above 0xFE or a lit silent stream")
+    for path, leaf in leaves(out.viewer).items():
+        check(leaf.shape[0] == B and (leaf.dtype in (torch.bool, torch.uint8) or bool(torch.isfinite(leaf).all())),
+              f"viewer {path}: {leaf.dtype} {tuple(leaf.shape)}")
+    check(bool(out.viewer.balls.visible.any()) and bool(out.led.any()), "the output stages lit nothing")
+    bare = StreamingPipeline(B, params, path="pallas", fast=True, device="cuda")
+    _, bare_ms, _ = run(bare, False)
+    del bare
+    torch.cuda.empty_cache()
+    med, bare_med = float(np.median(stage_ms)), float(np.median(bare_ms))
+    print(f"output stages hop: {STAGE_HOPS} hops at B={B} (StreamingPipeline path=pallas fast=True with_led "
+          f"with_viewer), hop ms median {med:.3f} (min {min(stage_ms):.3f}, max {max(stage_ms):.3f}); the bare "
+          f"pipeline right after on the same audio {bare_med:.3f} (min {min(bare_ms):.3f}, max {max(bare_ms):.3f}); "
+          f"aggregate realtime {B * dt * 1e3 / med:.1f}x; peak device memory {peak_gib:.2f} GiB; launches "
+          f"{stage_counts}")
+
+    # (b) the stages alone: device ops and time (profiler, the fullest of
+    # three traces) and the host's enqueue (median of 5, not profiled)
+    balls = pipe.state.balls
+    dt_b = torch.full((B,), dt, dtype=torch.float32, device="cuda")
+
+    def stages(with_led=True, with_viewer=True):
+        return derived_stages(params.range, out.analysis, dt_b, with_led=with_led,
+                              balls_state=balls, with_viewer=with_viewer)
+
+    profile = {}
+    for label, kw in (("both", {}), ("led", dict(with_viewer=False)), ("viewer", dict(with_led=False))):
+        launches, device_ms = max(device_trace(torch, lambda: stages(**kw)) for _ in range(3))
+        enqueue, wall = [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            stages(**kw)
+            enqueue.append((time.perf_counter() - t) * 1e3)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t) * 1e3)
+        profile[label] = dict(launches=launches, device_ms=device_ms, enqueue_ms=float(np.median(enqueue)),
+                              wall_ms=float(np.median(wall)))
+    print(f"output stages alone at B={B} (derived_stages; launches and device ms from the profiler, enqueue and "
+          f"wall ms by the host clock): {json.dumps(profile)}")
+
+    # (c) one hop with the stages under set_sync_debug_mode("error")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pipe.step(chunk(warm + STAGE_HOPS), dt)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f'output stages hop at B={B} under set_sync_debug_mode("error"): no host synchronisation')
+
+    # (d) card against CPU: one hop's analysis outputs and ball carry moved
+    # to the CPU, the stages run there on the same inputs
+    balls_before = pipe.state.balls
+    out = pipe.step(chunk(warm + STAGE_HOPS + 1), dt)
+    card = dict(leaves(out.viewer, "viewer"), led=out.led, **leaves(pipe.state.balls, "balls_state"))
+    cpu_analysis = AnalysisOutputs(**{k: v.cpu() for k, v in leaves(out.analysis).items()})
+    cpu_balls = BallState(**{k: v.cpu() for k, v in leaves(balls_before).items()})
+    t = time.perf_counter()
+    _, _, led, new_balls, viewer = derived_stages(params.range, cpu_analysis, dt_b.cpu(), with_led=True,
+                                                  balls_state=cpu_balls, with_viewer=True)
+    cpu_s = time.perf_counter() - t
+    host = dict(leaves(viewer, "viewer"), led=led, **leaves(new_balls, "balls_state"))
+    worst = stages_close(torch, card, host, "stages, card vs CPU")
+    print(f"output stages on the card vs on the CPU (one hop's inputs, B={B}, the CPU's run {cpu_s:.2f} s): "
+          f"{len(card)} leaves, max |diff| of the floats {worst['floats']:.3e} (tol {STAGE_ATOL}), of the ball "
+          f"positions {worst['positions']:.3e} (tol {POSITION_ATOL}), u8 values at most {worst['u8_levels']:.0f} "
+          f"level apart in at most {worst['u8_share_moved']:.2e} of a leaf's values (tol {STAGE_U8_SHARE}), "
+          f"booleans equal")
+    del pipe, out, balls, balls_before, card, host, audio
+    torch.cuda.empty_cache()
+
+    # (e) the golden replays
+    goldens = golden_phase(torch, counts, reset_counts)
+
+    # (f) StreamServer(fetch="led") against a with_led server fed the same pushes
+    gen.manual_seed(SEED + 3)
+    n_blocks = STAGE_HOPS + 1
+    sig = synthetic_audio(torch, B, int(sr) + n_blocks * hop, sr, gen).cpu().numpy()
+    servers = {fetch: StreamServer(B, params, path="pallas", fast=True, fetch=fetch, with_led=True, device="cuda")
+               for fetch in ("led", "full")}
+    server_ms = []
+    try:
+        for s in servers.values():
+            s.push_batch(sig[:, : int(sr)])
+            s.step(dt=dt)
+        for h in range(n_blocks):
+            block = sig[:, int(sr) + h * hop : int(sr) + (h + 1) * hop]
+            outs = {}
+            for fetch, s in servers.items():
+                s.push_batch(block)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                outs[fetch], _ = s.step(dt=dt)
+                torch.cuda.synchronize()
+                if fetch == "led" and h > 0:
+                    server_ms.append((time.perf_counter() - t) * 1e3)
+            compact, full = outs["led"], outs["full"]
+            check(isinstance(compact, CompactOutputs), f"fetch='led' returned {type(compact).__name__}")
+            check(torch.equal(compact.led, full.led) and torch.equal(compact.scene_calmness, full.analysis.scene_calmness)
+                  and torch.equal(compact.tuning_inaccuracy, full.analysis.tuning_inaccuracy),
+                  f"fetch='led' differs from the with_led server at hop {h}")
+    finally:
+        for s in servers.values():
+            s.close()
+    server_med = float(np.median(server_ms))
+    print(f"server fetch='led' at B={B}: hop ms median {server_med:.3f} (min {min(server_ms):.3f}, max "
+          f"{max(server_ms):.3f}, {len(server_ms)} hops); CompactOutputs.led equal (torch.equal) to a with_led "
+          f"fetch='full' server's at every hop")
+    numbers = dict(hop_ms=med, hop_min_ms=min(stage_ms), hop_max_ms=max(stage_ms), bare_hop_ms=bare_med,
+                   bare_hop_min_ms=min(bare_ms), bare_hop_max_ms=max(bare_ms), peak_gib=peak_gib,
+                   stages_alone=profile, card_vs_cpu_max_err=worst, server_fetch_led_hop_ms=server_med, **goldens)
+    return stage_counts, numbers
 
 
 def main() -> None:
@@ -990,15 +1340,20 @@ def main() -> None:
 
     # ---- 5. the serving runtime ----------------------------------------------
     server_counts = serving_phase(torch, params, counts, reset_counts)
+
+    # ---- 6. the output stages --------------------------------------------------
+    stage_counts, stage_numbers = output_stages_phase(torch, params, counts, reset_counts, gen)
     for label, key in (("vqt_power_bf16", "vqt"), ("vqt_power_f32", "vqt"), ("peaks", "peaks"), ("agc", "agc")):
         by_path = {"pipeline": kernels[label]["launches"],
-                   "server": server_counts[key] if label != "vqt_power_f32" else 0}
+                   "server": server_counts[key] if label != "vqt_power_f32" else 0,
+                   "output_stages": stage_counts[key] if label != "vqt_power_f32" else 0}
         kernels[label]["launches_by_path"] = by_path
         kernels[label]["launches"] = sum(by_path.values())
 
     order = ("vqt_power_bf16", "vqt_power_f32", "peaks", "agc")
     print(json.dumps({"vqt_times": vqt_times}))
     print(json.dumps({"analysis_step": analysis_profile}))
+    print(json.dumps({"output_stages": stage_numbers}))
     print(json.dumps({"kernels": [kernels[n] for n in order]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -3,9 +3,11 @@
 The streaming hop (ring + AGC -> fused VQT -> analysis) runs on an NVIDIA
 H100 through three hand-written CUDA kernels (csrc/: VQT, peak primitives,
 AGC), each with a plain PyTorch version that runs for CPU tensors. The
+output stages after the analysis, the LED color block (io/led.py) and the
+viewer's display outputs (models/viewer.py), are plain PyTorch. The
 serving runtime (``StreamServer``, ``ServeLoop``; runtime/) feeds the same
-VQT and analysis from a native ingest ring bank with AGC in C++ on the host
-(native/, built with g++ at first use). Entry points run on the card unless
+VQT, analysis and output stages from a native ingest ring bank with AGC in
+C++ on the host (native/, built with g++ at first use). Entry points run on the card unless
 given ``device="cpu"``. The package imports nothing of the JAX package; the
 modules it needs from there are copied.
 """
@@ -45,7 +47,7 @@ from .ops.vqt import (
 )
 from .ops.vqt_pallas import PallasVqtArrays, vqt_db_pallas, vqt_power_pallas
 from .runtime.loop import ServeLoop
-from .runtime.server import StreamServer
+from .runtime.server import CompactOutputs, ServeOutputs, StreamServer
 
 __all__ = [
     "AgcParameters",
@@ -83,4 +85,6 @@ __all__ = [
     "vqt_power_pallas",
     "ServeLoop",
     "StreamServer",
+    "ServeOutputs",
+    "CompactOutputs",
 ]

@@ -16,6 +16,7 @@ import torch
 from .core.device import resolve_device
 from .models.analysis import AnalysisState
 from .models.pipeline import PipelineState
+from .models.viewer import BALL_LEAVES, BallState
 from .ops.vqt import VqtArrays
 from .ops.vqt_pallas import PallasVqtArrays
 from .stream.ring import RingState
@@ -79,10 +80,27 @@ def pallas_vqt_arrays_from_numpy(
     )
 
 
+def ball_state_from_numpy(arrays: dict, device="cuda") -> BallState:
+    """The viewer stage's ball carry from ``arrays``, which holds its leaves
+    by the names of BALL_LEAVES with their leading stream axis (a JAX
+    pipeline's ``state.balls`` gives them under vmap)."""
+    device = resolve_device(device)
+    return BallState(**{k: tensor_from_numpy(arrays[k], device).float() for k in BALL_LEAVES})
+
+
+def ball_state_to_numpy(balls: BallState) -> dict:
+    return {k: tensor_to_numpy(getattr(balls, k)) for k in BALL_LEAVES}
+
+
 def pipeline_state_from_numpy(arrays: dict, device="cuda") -> PipelineState:
     """``arrays``: "buffer" (B, L), "gain" (B,) and the six analysis leaves
-    (ANALYSIS_LEAVES) with their leading stream axis."""
+    (ANALYSIS_LEAVES) with their leading stream axis, and for a pipeline
+    with the viewer stage its ball carry as "balls_<leaf>" for each of
+    BALL_LEAVES."""
     device = resolve_device(device)
+    balls = None
+    if "balls_scale" in arrays:
+        balls = ball_state_from_numpy({k: arrays["balls_" + k] for k in BALL_LEAVES}, device)
     return PipelineState(
         ring=RingState(
             buffer=tensor_from_numpy(arrays["buffer"], device).float(),
@@ -91,6 +109,7 @@ def pipeline_state_from_numpy(arrays: dict, device="cuda") -> PipelineState:
         analysis=AnalysisState(
             **{k: tensor_from_numpy(arrays[k], device).float() for k in ANALYSIS_LEAVES}
         ),
+        balls=balls,
     )
 
 
@@ -101,10 +120,13 @@ def pipeline_state_to_numpy(state: PipelineState) -> dict:
     }
     for k in ANALYSIS_LEAVES:
         out[k] = tensor_to_numpy(getattr(state.analysis, k))
+    if state.balls is not None:
+        for k, v in ball_state_to_numpy(state.balls).items():
+            out["balls_" + k] = v
     return out
 
 
-def server_state_from_numpy(server, rings, analysis: dict, window=None) -> None:
+def server_state_from_numpy(server, rings, analysis: dict, window=None, balls: dict | None = None) -> None:
     """Carries a JAX ``StreamServer``'s state into a port ``StreamServer``
     of the same shape, so the port continues it mid-stream.
 
@@ -115,14 +137,20 @@ def server_state_from_numpy(server, rings, analysis: dict, window=None) -> None:
     cursors are set to the write heads, so take the state where the JAX
     server has consumed all the audio it was given (after a step, before
     the next push). Without one, the port's next step re-materializes the
-    window from the ring, as after a restore."""
+    window from the ring, as after a restore. ``balls`` is the JAX server's
+    ball carry (``balls_state``) by the names of BALL_LEAVES, for a server
+    with the viewer stage."""
+    if (balls is not None) != server.with_viewer:
+        raise ValueError("balls must be given exactly when the server has the viewer stage")
     audio, heads, gains = rings
     server.rings.import_state(audio, heads, gains)
     state = AnalysisState(
         **{k: tensor_from_numpy(analysis[k], server.device).float() for k in ANALYSIS_LEAVES}
     )
+    ball_state = ball_state_from_numpy(balls, server.device) if balls is not None else None
     with server._state_lock:
         server.analysis_state = state
+        server.balls_state = ball_state
         if window is None:
             server._window = None
         else:

@@ -30,7 +30,7 @@ from ..core.device import resolve_device
 from ..ops.peaks import _shift, enhance_peaks_continuous, promote_bass_peaks
 from ..ops.peaks_pallas import find_peaks_masks
 from ..utils.ema import ema_update
-from ..utils.rounding import rust_round
+from ..utils.rounding import exact_div, rust_round
 
 
 @dataclass
@@ -78,16 +78,6 @@ def init_state_batch(n_streams: int, n_buckets: int, device="cuda") -> AnalysisS
     )
 
 
-def _exact_div(x: torch.Tensor, d: float) -> torch.Tensor:
-    """``x / d`` correctly rounded on every device. On the card PyTorch turns
-    a division by a Python scalar into a product with its rounded reciprocal,
-    which can land one ulp off the quotient; where the analysis floors or
-    rounds a quotient (the smoothing horizons, the nearest semitone), that
-    ulp flips the result against the CPU and the JAX package. So the divisor
-    goes in as a 0-d tensor filled on x's device (a fill, no host copy)."""
-    return x / torch.full((), d, dtype=x.dtype, device=x.device)
-
-
 def _smoothing_horizons(
     params: AnalysisParameters, rng: VqtRange, scene_calmness: torch.Tensor
 ) -> torch.Tensor:
@@ -98,7 +88,7 @@ def _smoothing_horizons(
     passthrough (horizon 0). scene_calmness: (B,) -> (B, n)."""
     n = rng.n_buckets
     device = scene_calmness.device
-    octave_fraction = _exact_div(
+    octave_fraction = exact_div(
         torch.arange(n, dtype=torch.float32, device=device), rng.buckets_per_octave * rng.octaves
     )
     freq_mult = 1.5 - 0.5 * octave_fraction
@@ -108,7 +98,7 @@ def _smoothing_horizons(
     base_ms = params.vqt_smoothing_duration_base * 1000.0
     horizon_ms = torch.floor(base_ms * freq_mult * calm_mult[:, None])
     if base_ms > 0.0:
-        return _exact_div(horizon_ms, 1000.0)
+        return exact_div(horizon_ms, 1000.0)
     return torch.zeros_like(horizon_ms)
 
 
@@ -181,7 +171,7 @@ def _pitch_accuracy_deviation(
     n = peak_mask.shape[-1]
     idx = torch.arange(n, device=center.device)
     zero = torch.zeros((), dtype=torch.float32, device=center.device)
-    c_semi = _exact_div(center * 12.0, buckets_per_octave)
+    c_semi = exact_div(center * 12.0, buckets_per_octave)
     # rust_round: a two-bin plateau's parabola center is exactly i+0.5, where
     # half-to-even would flip the write bin and the deviation sign
     deviation = c_semi - rust_round(c_semi)
@@ -212,7 +202,7 @@ def _update_tuning_inaccuracy(
     """Power-weighted mean |cents| drift, EMA'd (pitch_analysis.rs:48-75)."""
     zero = torch.zeros((), dtype=torch.float32, device=size.device)
     power = torch.where(peak_mask, torch.pow(10.0, size / 10.0), zero)
-    c_semi = _exact_div(center * 12.0, buckets_per_octave)
+    c_semi = exact_div(center * 12.0, buckets_per_octave)
     drift = (c_semi - rust_round(c_semi)).abs()
     power_sum = power.sum(-1)
     avg = torch.where(
@@ -293,6 +283,20 @@ def _analysis_core(
     return new_state, outputs
 
 
+def dt_batch(dt, b: int, device) -> torch.Tensor:
+    """The frame time as a (B,) float32 tensor on ``device``: ``dt`` is a
+    scalar (Python or NumPy), or a (B,) tensor, NumPy array or list,
+    broadcast like the JAX package's jnp.broadcast_to. A scalar or a tensor
+    on the card costs no host synchronisation."""
+    if isinstance(dt, torch.Tensor):
+        return dt.to(device=device, dtype=torch.float32).expand(b)
+    if np.ndim(dt) == 0:
+        # filled on the device: a host scalar copied over would synchronise
+        return torch.full((b,), float(dt), dtype=torch.float32, device=device)
+    # a per-stream array-like (a NumPy array, a list): one copy
+    return torch.as_tensor(np.asarray(dt, np.float32), device=device).expand(b)
+
+
 def analysis_step_batch(
     params: AnalysisParameters,
     rng: VqtRange,
@@ -302,21 +306,11 @@ def analysis_step_batch(
 ) -> tuple[AnalysisState, AnalysisOutputs]:
     """One frame of the analysis chain (analysis.rs:288-404) for every
     stream: ``x_vqt`` is (B, n_buckets) dB spectra, ``dt`` the frame time in
-    seconds: a scalar (Python or NumPy), or a (B,) tensor, NumPy array or
-    list. A scalar or a tensor on the card costs no host synchronisation."""
+    seconds, in any form :func:`dt_batch` takes."""
     b, n = x_vqt.shape
     if n != rng.n_buckets:
         raise ValueError(f"x_vqt has {n} bins, the range {rng.n_buckets}")
-    if isinstance(dt, torch.Tensor):
-        dt_b = dt.to(device=x_vqt.device, dtype=torch.float32).expand(b)
-    elif np.ndim(dt) == 0:
-        # filled on the device: a host scalar copied over would synchronise
-        dt_b = torch.full((b,), float(dt), dtype=torch.float32, device=x_vqt.device)
-    else:
-        # a per-stream array-like (a NumPy array, a list): one copy, broadcast
-        # like the JAX package's jnp.broadcast_to
-        dt_b = torch.as_tensor(np.asarray(dt, np.float32), device=x_vqt.device).expand(b)
-    dt_col = dt_b[:, None]
+    dt_col = dt_batch(dt, b, x_vqt.device)[:, None]
 
     # step 1: calmness- and frequency-adaptive EMA smoothing
     horizons = _smoothing_horizons(params, rng, state.scene_calmness)

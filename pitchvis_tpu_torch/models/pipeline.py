@@ -7,9 +7,12 @@ Port of ``pitchvis_tpu/models/pipeline.py``. Reference data flow
     state, outputs = pipeline_step(vqt_arrays, state, chunk, dt, vqt_params=...)
 
 ring push (non-finite rejection, AGC kernel, roll), the trailing n_fft
-window, the VQT in dB (the fused VQT kernel on ``path="pallas"``) and the
-batched analysis step (two launches of the peaks kernel). The ML, LED and
-viewer stages of the JAX package are not ported yet.
+window, the VQT in dB (the fused VQT kernel on ``path="pallas"``), the
+batched analysis step (two launches of the peaks kernel) and, when asked
+for, the output stages (:func:`derived_stages`): the LED color block
+(io/led.py) and every display-derived quantity of the reference's
+update_display (models/viewer.py), in plain PyTorch. The JAX package's ML
+stage is not ported yet (ROADMAP Queue A item 5).
 """
 
 from __future__ import annotations
@@ -20,10 +23,23 @@ import torch
 
 from ..core.config import AgcParameters, AnalysisParameters, VqtParameters
 from ..core.device import resolve_device
+from ..io.led import led_frame_values
 from ..kernel.builder import get_kernel
 from ..ops.vqt import make_vqt_arrays, vqt_db_auto
 from ..stream.ring import RingState, ring_push, ring_window
-from .analysis import AnalysisOutputs, AnalysisState, analysis_step_batch, init_state_batch
+from .analysis import AnalysisOutputs, AnalysisState, analysis_step_batch, dt_batch, init_state_batch
+from .viewer import (
+    BallOutputs,
+    BallState,
+    BassSpiralOutputs,
+    CalmnessHistogramOutputs,
+    bass_spiral,
+    bloom_intensity,
+    calmness_histogram,
+    chroma_vector,
+    spectrogram_row_vqt,
+    update_balls,
+)
 
 
 def build_rebuilt_arrays(old_params, new_params, *, max_n_fft: int, path: str,
@@ -47,16 +63,20 @@ def build_rebuilt_arrays(old_params, new_params, *, max_n_fft: int, path: str,
 
 def reset_state_row(state, fresh, idx: int):
     """Overwrites batch row ``idx`` of every tensor of a carried state (a
-    tensor, or a dataclass of tensors and such dataclasses) with row 0 of the
+    tensor, None, or a tuple or dataclass of these) with row 0 of the
     freshly initialized (B=1) ``fresh`` of the same structure: the device
     side of stream-slot recycling (StreamingPipeline.reset_stream,
     runtime/server.py::StreamServer.reset_stream). Functional: each tensor is
     cloned before the write, so a tensor that a caller captured earlier (an
     in-flight hop, outputs already returned) never changes."""
+    if state is None:
+        return None
     if isinstance(state, torch.Tensor):
         out = state.clone()
         out[idx] = fresh[0]
         return out
+    if isinstance(state, tuple):
+        return tuple(reset_state_row(s, f, idx) for s, f in zip(state, fresh))
     return type(state)(**{
         f.name: reset_state_row(getattr(state, f.name), getattr(fresh, f.name), idx)
         for f in fields(state)
@@ -67,6 +87,21 @@ def reset_state_row(state, fresh, idx: int):
 class PipelineState:
     ring: RingState
     analysis: AnalysisState
+    # per-stream pitch-ball fade carry of the viewer stage; None without it
+    balls: BallState | None = None
+
+
+@dataclass
+class ViewerOutputs:
+    """Display-derived quantities of the reference's update_display pass
+    (models/viewer.py), per stream."""
+
+    balls: BallOutputs  # per-bin ball position/rgba/scale/visibility
+    chroma: torch.Tensor  # (B, 12) C4-referenced pitch-class power
+    bloom: torch.Tensor  # (B,) bloom intensity = clamp(1.3*scene_calmness)
+    spectrogram_row: torch.Tensor  # (B, n_buckets, 4) RGBA8 VQT-mode row
+    bass: BassSpiralOutputs  # spiral coloring up to the lowest peak
+    calmness_histogram: CalmnessHistogramOutputs  # debug-overlay contour
 
 
 @dataclass
@@ -74,15 +109,19 @@ class PipelineOutputs:
     x_vqt: torch.Tensor  # (B, n_buckets) raw dB spectra
     gain: torch.Tensor  # (B,) AGC gain (RingBuffer.gain diagnostic)
     analysis: AnalysisOutputs
+    led: torch.Tensor | None = None  # (B, n_buckets, 3) u8 LED colors
+    viewer: ViewerOutputs | None = None  # display-derived outputs
 
 
 def init_pipeline_state(
     n_streams: int,
     params: VqtParameters,
     buffer_len: int | None = None,
+    with_viewer: bool = False,
     device="cuda",
 ) -> PipelineState:
-    """Fresh state for ``n_streams`` streams, on the card unless
+    """Fresh state for ``n_streams`` streams (with the ball carry of the
+    viewer stage when ``with_viewer``), on the card unless
     ``device="cpu"``; without CUDA the default raises."""
     device = resolve_device(device)
     buffer_len = buffer_len or params.n_fft
@@ -91,7 +130,57 @@ def init_pipeline_state(
     return PipelineState(
         ring=RingState.init(n_streams, buffer_len, device=device),
         analysis=init_state_batch(n_streams, params.n_buckets, device=device),
+        balls=BallState.init(n_streams, params.n_buckets, device=device) if with_viewer else None,
     )
+
+
+def derived_stages(
+    rng_cfg,
+    outputs: AnalysisOutputs,
+    dt_b: torch.Tensor,
+    *,
+    ml_model=None,
+    ml_params=None,
+    ml_state=None,
+    with_led: bool = False,
+    balls_state: BallState | None = None,
+    with_viewer: bool = False,
+):
+    """Post-analysis output stages shared by pipeline_step and the
+    ingest-fed StreamServer: the LED color block (io/led.py) and every
+    display-derived quantity of update_display (models/viewer.py). ``dt_b``
+    is the (B,) frame time. Returns (new_ml_state, ml_midi, led,
+    new_balls_state, viewer), the JAX package's tuple; disabled stages pass
+    their state through and emit None. The ML arguments raise
+    NotImplementedError: the ML stage is not ported yet."""
+    if ml_model is not None or ml_params is not None or ml_state is not None:
+        raise NotImplementedError(
+            "the ML stage is not ported to pitchvis_tpu_torch yet: ROADMAP Queue A item 5 (ML)"
+        )
+    led = None
+    if with_led:
+        led = led_frame_values(rng_cfg, outputs.peaks, outputs.peak_center, outputs.peak_size)
+
+    new_balls = balls_state
+    viewer = None
+    if with_viewer:
+        if balls_state is None:
+            raise ValueError(
+                "with_viewer=True needs the ball carry (init_pipeline_state(with_viewer=True))"
+            )
+        new_balls, ball_out = update_balls(
+            rng_cfg, balls_state, outputs.peaks, outputs.peak_center, outputs.peak_size,
+            outputs.calmness, outputs.pitch_accuracy, outputs.pitch_deviation, dt_b,
+        )
+        viewer = ViewerOutputs(
+            balls=ball_out,
+            chroma=chroma_vector(outputs.x_vqt_smoothed, rng_cfg),
+            bloom=bloom_intensity(outputs.scene_calmness),
+            spectrogram_row=spectrogram_row_vqt(rng_cfg, outputs.x_vqt_smoothed),
+            bass=bass_spiral(rng_cfg, outputs.peaks, outputs.peak_center, outputs.peak_size),
+            calmness_histogram=calmness_histogram(outputs.calmness),
+        )
+    return None, None, led, new_balls, viewer
 
 
 def pipeline_step(
@@ -104,47 +193,80 @@ def pipeline_step(
     analysis_params: AnalysisParameters = AnalysisParameters(),
     agc_params: AgcParameters = AgcParameters(),
     path: str = "time",
+    with_led: bool = False,
+    with_viewer: bool = False,
 ) -> tuple[PipelineState, PipelineOutputs]:
     """One hop for all streams: push chunk (non-finite-guarded,
     silence-frozen AGC), VQT on the trailing n_fft window, full analysis
-    step. chunk: (B, hop) raw samples; dt: scalar or (B,) seconds per hop."""
+    step, and the output stages asked for. chunk: (B, hop) raw samples; dt:
+    scalar or (B,) seconds per hop. with_led: emit the per-stream
+    (n_buckets, 3) u8 LED color block (io/led.py). with_viewer: emit every
+    display-derived quantity of update_display (pitch balls with fade carry,
+    chroma, bloom, spectrogram row, bass spiral, calmness histogram);
+    requires state.balls (init_pipeline_state(with_viewer=True))."""
     ring = ring_push(state.ring, chunk, agc_params)
     window = ring_window(ring, vqt_params.n_fft)
     x_vqt = vqt_db_auto(vqt_arrays, window, path=path)
+    dt_b = dt_batch(dt, x_vqt.shape[0], x_vqt.device)
     new_analysis, outputs = analysis_step_batch(
-        analysis_params, vqt_params.range, state.analysis, x_vqt, dt
+        analysis_params, vqt_params.range, state.analysis, x_vqt, dt_b
+    )
+    _, _, led, new_balls, viewer = derived_stages(
+        vqt_params.range, outputs, dt_b,
+        with_led=with_led, balls_state=state.balls, with_viewer=with_viewer,
     )
     return (
-        PipelineState(ring=ring, analysis=new_analysis),
-        PipelineOutputs(x_vqt=x_vqt, gain=ring.gain, analysis=outputs),
+        PipelineState(ring=ring, analysis=new_analysis, balls=new_balls),
+        PipelineOutputs(x_vqt=x_vqt, gain=ring.gain, analysis=outputs, led=led, viewer=viewer),
     )
 
 
 def _stack(items):
     """Stacks a list of equal-structured output dataclasses along a new
-    leading axis."""
+    leading axis (None leaves stay None)."""
     first = items[0]
+    if first is None:
+        return None
     if isinstance(first, torch.Tensor):
         return torch.stack(items)
     return type(first)(**{f.name: _stack([getattr(it, f.name) for it in items]) for f in fields(first)})
 
 
-def _no_hops(state: PipelineState, n_buckets: int) -> PipelineOutputs:
+def _no_hops(state: PipelineState, vqt_params: VqtParameters, with_led: bool,
+             with_viewer: bool) -> PipelineOutputs:
     """The outputs of zero hops: each leaf has the shape and type of one
-    hop's, behind a leading axis of 0 (what lax.scan returns for K=0)."""
+    hop's, behind a leading axis of 0 (what lax.scan returns for K=0). The
+    output stages' shapes come from running them on zero analysis outputs
+    (their state is not kept)."""
     b = state.ring.buffer.shape[0]
+    n = vqt_params.n_buckets
     device = state.ring.buffer.device
 
-    def empty(*shape, dtype=torch.float32):
-        return torch.empty((0, b, *shape), dtype=dtype, device=device)
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros((b, *shape), dtype=dtype, device=device)
 
     per_stream = ("scene_calmness", "tuning_inaccuracy")
     analysis = AnalysisOutputs(**{
-        f.name: empty() if f.name in per_stream
-        else empty(n_buckets, dtype=torch.bool if f.name == "peaks" else torch.float32)
+        f.name: zeros() if f.name in per_stream
+        else zeros(n, dtype=torch.bool if f.name == "peaks" else torch.float32)
         for f in fields(AnalysisOutputs)
     })
-    return PipelineOutputs(x_vqt=empty(n_buckets), gain=empty(), analysis=analysis)
+    _, _, led, _, viewer = derived_stages(
+        vqt_params.range, analysis, zeros(),
+        with_led=with_led, balls_state=state.balls, with_viewer=with_viewer,
+    )
+    one = PipelineOutputs(x_vqt=zeros(n), gain=zeros(), analysis=analysis, led=led, viewer=viewer)
+    return _empty_like(one)
+
+
+def _empty_like(tree):
+    """``tree`` with each tensor replaced by an empty one of its type and
+    shape behind a leading axis of 0."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree.new_empty((0, *tree.shape))
+    return type(tree)(**{f.name: _empty_like(getattr(tree, f.name)) for f in fields(tree)})
 
 
 def pipeline_step_multi(
@@ -162,7 +284,9 @@ def pipeline_step_multi(
         state, out = pipeline_step(vqt_arrays, state, chunk, dt, **kwargs)
         outs.append(out)
     if not outs:
-        return state, _no_hops(state, kwargs["vqt_params"].n_buckets)
+        return state, _no_hops(
+            state, kwargs["vqt_params"], kwargs.get("with_led", False), kwargs.get("with_viewer", False)
+        )
     return state, _stack(outs)
 
 
@@ -171,8 +295,9 @@ class StreamingPipeline:
 
     Mirrors the reference's per-frame loop (pitchvis_serial/src/main.rs:
     207-230 / vqt_system.rs:40-68) but batched: feed `hop`-sized host chunks
-    for B streams, receive the full analysis outputs. Runs on the card
-    unless ``device="cpu"``; without CUDA the default raises.
+    for B streams, receive the full analysis outputs, and with ``with_led``
+    / ``with_viewer`` the LED colors and the display-derived outputs. Runs
+    on the card unless ``device="cpu"``; without CUDA the default raises.
     """
 
     def __init__(
@@ -184,6 +309,8 @@ class StreamingPipeline:
         path: str = "time",
         fast: bool = False,
         buffer_len: int | None = None,
+        with_led: bool = False,
+        with_viewer: bool = False,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -192,10 +319,12 @@ class StreamingPipeline:
         self.agc_params = agc_params or AgcParameters()
         self.path = path
         self.fast = fast
+        self.with_led = with_led
+        self.with_viewer = with_viewer
         self.kernel = get_kernel(self.vqt_params)
         self.arrays = make_vqt_arrays(self.kernel, path=path, fast=fast, device=self.device)
         self.state = init_pipeline_state(
-            n_streams, self.vqt_params, buffer_len=buffer_len, device=self.device
+            n_streams, self.vqt_params, buffer_len=buffer_len, with_viewer=with_viewer, device=self.device
         )
         self.delay_secs = self.kernel.delay_secs
 
@@ -205,6 +334,8 @@ class StreamingPipeline:
             analysis_params=self.analysis_params,
             agc_params=self.agc_params,
             path=self.path,
+            with_led=self.with_led,
+            with_viewer=self.with_viewer,
         )
 
     def _samples(self, x) -> torch.Tensor:
@@ -225,8 +356,9 @@ class StreamingPipeline:
 
     def rebuild(self, vqt_params: VqtParameters) -> None:
         """Swaps in a new VQT parameter set while streaming. The ring audio
-        and AGC gains are preserved; the analysis carries persist when the
-        bin layout is unchanged and re-initialize when it changes. Raises
+        and AGC gains are preserved; the analysis and ball carries persist
+        when the bin layout is unchanged and re-initialize when it changes
+        (they are bin-indexed). Raises
         ValueError for sets this pipeline cannot host (different sample
         rate, n_fft beyond the ring length)."""
         buffer_len = int(self.state.ring.buffer.shape[1])
@@ -237,21 +369,24 @@ class StreamingPipeline:
         self.arrays = arrays
         if layout_changed:
             n_streams = int(self.state.ring.buffer.shape[0])
-            self.state = PipelineState(
-                ring=self.state.ring,  # audio survives the swap
-                analysis=init_state_batch(n_streams, vqt_params.n_buckets, device=self.device),
+            fresh = init_pipeline_state(
+                n_streams, vqt_params, buffer_len=buffer_len, with_viewer=self.with_viewer,
+                device=self.device,
             )
+            # audio survives the swap
+            self.state = PipelineState(ring=self.state.ring, analysis=fresh.analysis, balls=fresh.balls)
         self.kernel = kernel
         self.vqt_params = vqt_params
         self.delay_secs = kernel.delay_secs
 
     def reset_stream(self, idx: int) -> None:
         """Recycles batch slot `idx` for a NEW stream: ring samples, AGC
-        gain and analysis carries return to their fresh values. Other slots
-        are untouched. Outputs returned earlier (which share tensors with the
-        state) are left as they were."""
+        gain, analysis carries and (with the viewer stage) the ball-fade
+        carry return to their fresh values. Other slots are untouched.
+        Outputs returned earlier (which share tensors with the state) are
+        left as they were."""
         fresh = init_pipeline_state(
-            1, self.vqt_params,
-            buffer_len=int(self.state.ring.buffer.shape[1]), device=self.device,
+            1, self.vqt_params, buffer_len=int(self.state.ring.buffer.shape[1]),
+            with_viewer=self.with_viewer, device=self.device,
         )
         self.state = reset_state_row(self.state, fresh, idx)

@@ -2,7 +2,8 @@
 
 Port of ``pitchvis_tpu/runtime/checkpoint.py``. A long-running multi-stream
 server wants its carried state (ring audio, AGC gains, EMA/calmness
-carries) to survive restarts; the parameter set is stored beside it so a
+carries, the viewer stage's ball-fade carry) to survive restarts; the
+parameter set and the output-stage flags are stored beside it so a
 restore can rebuild the matching kernel. The JAX package saves its carries
 through orbax, which needs JAX; the port saves them with ``np.savez`` and
 reads only its own checkpoints (the metadata files and the ring image have
@@ -20,7 +21,13 @@ import shutil
 
 import numpy as np
 
-from ..convert import ANALYSIS_LEAVES, tensor_from_numpy, tensor_to_numpy
+from ..convert import (
+    ANALYSIS_LEAVES,
+    ball_state_from_numpy,
+    ball_state_to_numpy,
+    tensor_from_numpy,
+    tensor_to_numpy,
+)
 from ..core.config import (
     AgcParameters,
     AnalysisParameters,
@@ -30,6 +37,7 @@ from ..core.config import (
 )
 from ..models.analysis import AnalysisState
 from ..models.pipeline import PipelineState
+from ..models.viewer import BALL_LEAVES
 from ..stream.ring import RingState
 
 
@@ -112,11 +120,15 @@ def save_pipeline_state(
     (``load_pipeline_config`` returns them)."""
     path = os.path.abspath(path)
     tmp = _stage_dir(path)
+    balls = {}
+    if state.balls is not None:
+        balls = {"balls_" + k: v for k, v in ball_state_to_numpy(state.balls).items()}
     np.savez(
         os.path.join(tmp, "pipeline_state.npz"),
         buffer=tensor_to_numpy(state.ring.buffer),
         gain=tensor_to_numpy(state.ring.gain),
         **_analysis_arrays(state.analysis),
+        **balls,
     )
     meta = {
         "params": dataclasses.asdict(params),
@@ -126,10 +138,10 @@ def save_pipeline_state(
         "agc_params": dataclasses.asdict(agc_params) if agc_params is not None else None,
         "n_streams": int(state.ring.buffer.shape[0]),
         "buffer_len": int(state.ring.buffer.shape[1]),
-        # the JAX package's keys for its ML and viewer carries, which the
-        # port's pipeline does not have yet
+        # the JAX package's key for its ML carry, which the port's pipeline
+        # does not have yet
         "ml_t_window": None,
-        "with_viewer": False,
+        "with_viewer": state.balls is not None,
     }
     with open(os.path.join(tmp, "pipeline_meta.json"), "w") as f:
         json.dump(meta, f)
@@ -160,9 +172,13 @@ def load_pipeline_state(path: str, device="cuda") -> tuple[PipelineState, VqtPar
         meta = json.load(f)
     params = _vqt_params_from_dict(meta["params"])
     with np.load(os.path.join(path, "pipeline_state.npz")) as z:
+        balls = None
+        if meta.get("with_viewer", False):
+            balls = ball_state_from_numpy({k: z["balls_" + k] for k in BALL_LEAVES}, device)
         state = PipelineState(
             ring=RingState(buffer=tensor_from_numpy(z["buffer"], device), gain=tensor_from_numpy(z["gain"], device)),
             analysis=_analysis_state(z, device),
+            balls=balls,
         )
     if tuple(state.ring.buffer.shape) != (meta["n_streams"], meta["buffer_len"]):
         raise ValueError(f"saved ring {tuple(state.ring.buffer.shape)} does not match its metadata")
@@ -177,8 +193,9 @@ def load_pipeline_state(path: str, device="cuda") -> tuple[PipelineState, VqtPar
 def save_server_state(path: str, server) -> None:
     """Checkpoints a running StreamServer: the native ring bank image (audio
     windows, total-written counters, AGC gains), the per-stream analysis
-    carries, and the parameter set and serving flags needed to rebuild the
-    matching kernel on restore.
+    carries and ball carry (with the viewer stage), and the parameter set
+    and serving flags (output stages included) needed to rebuild the
+    matching server on restore.
 
     The carries are captured first and the ring image after, not as one
     atomic cut: streams that receive audio during the save may be up to one
@@ -190,12 +207,15 @@ def save_server_state(path: str, server) -> None:
     tmp = _stage_dir(path)
     with server._state_lock:
         state = server.analysis_state
+        balls = server.balls_state
         vqt_params = server.vqt_params
         analysis_params = server.analysis_params
     carries = _analysis_arrays(state)
     audio, heads, gains = server.rings.export_state()
     np.savez_compressed(os.path.join(tmp, "server_rings.npz"), audio=audio, heads=heads, gains=gains)
     np.savez(os.path.join(tmp, "server_analysis_state.npz"), **carries)
+    if balls is not None:
+        np.savez(os.path.join(tmp, "server_balls_state.npz"), **ball_state_to_numpy(balls))
     meta = {
         "vqt_params": dataclasses.asdict(vqt_params),
         "analysis_params": dataclasses.asdict(analysis_params),
@@ -207,11 +227,10 @@ def save_server_state(path: str, server) -> None:
         "hop": server._hop,
         "max_lag": server._max_lag,
         "max_catchup": server._max_catchup,
-        # the JAX server's fused output stages, which the port's server does
-        # not have yet
-        "with_led": False,
-        "with_viewer": False,
-        "fetch": "full",
+        "with_led": server.with_led,
+        "with_viewer": server.with_viewer,
+        "fetch": server.fetch,
+        # the JAX server's ML stage, which the port's server does not have yet
         "ml_t_window": None,
         "has_ml_state": False,
     }
@@ -225,9 +244,10 @@ def restore_server(path: str, ml_model=None, ml_params=None, mesh=None, device="
     card unless ``device="cpu"``): the same parameters and serving config,
     the ring audio, write positions and AGC gains, and the analysis
     carries, so trajectories continue where the dead process left off. The
-    window is re-materialized from the ring on the first step. Producers
-    re-attach to their previous slots afterwards. ``ml_model``/
-    ``ml_params``/``mesh`` are the JAX signature's and raise
+    window is re-materialized from the ring on the first step. The output
+    stages (``with_led``, ``with_viewer``, ``fetch``) are restored with the
+    ball carry. Producers re-attach to their previous slots afterwards.
+    ``ml_model``/``ml_params``/``mesh`` are the JAX signature's and raise
     NotImplementedError, as the server does."""
     from .server import StreamServer
 
@@ -248,6 +268,9 @@ def restore_server(path: str, ml_model=None, ml_params=None, mesh=None, device="
         hop_seconds=meta.get("hop", int(vqt_params.sr / 60.0)) / vqt_params.sr,
         max_lag_seconds=meta.get("max_lag", int(vqt_params.sr * 0.25)) / vqt_params.sr,
         max_catchup_hops=meta.get("max_catchup", 1),
+        with_led=meta.get("with_led", False),
+        with_viewer=meta.get("with_viewer", False),
+        fetch=meta.get("fetch", "full"),
         ml_model=ml_model,
         ml_params=ml_params,
         mesh=mesh,
@@ -262,4 +285,7 @@ def restore_server(path: str, ml_model=None, ml_params=None, mesh=None, device="
         server.rings.import_state(rings["audio"], rings["heads"], rings["gains"])
     with np.load(os.path.join(path, "server_analysis_state.npz")) as z:
         server.analysis_state = _analysis_state(z, server.device)
+    if server.with_viewer:
+        with np.load(os.path.join(path, "server_balls_state.npz")) as z:
+            server.balls_state = ball_state_from_numpy(z, server.device)
     return server

@@ -18,3 +18,14 @@ import torch
 def rust_round(x: torch.Tensor) -> torch.Tensor:
     """Rust ``f32::round`` semantics for non-negative ``x``."""
     return torch.floor(x + 0.5)
+
+
+def exact_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` correctly rounded on every device. On the card PyTorch turns
+    a division by a Python scalar into a product with its rounded reciprocal,
+    which can land one ulp off the quotient; where a quotient is then floored
+    or rounded (a smoothing horizon, a nearest semitone, a u8 color level),
+    that ulp flips the result against the CPU and the JAX package. So the
+    divisor goes in as a 0-d tensor filled on x's device (a fill, no host
+    copy)."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)

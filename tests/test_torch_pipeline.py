@@ -19,6 +19,7 @@ from pitchvis_tpu_torch.ops.vqt_pallas import PallasVqtArrays
 from pitchvis_tpu_torch.stream.ring import RingState
 from pitchvis_tpu_torch.convert import ANALYSIS_LEAVES, pipeline_state_from_numpy, pipeline_state_to_numpy
 from pitchvis_tpu_torch.models.analysis import analysis_step_batch
+from pitchvis_tpu_torch.models.viewer import BallState, CalmnessGraphState, SpectrogramState
 
 from conftest import SMALL_PARAMS
 from torch_port_helpers import default_params, streams, to_port
@@ -204,6 +205,13 @@ CONSTRUCTORS = {
     "convert.pallas_vqt_arrays_from_numpy": lambda **kw: convert.pallas_vqt_arrays_from_numpy(
         [np.zeros((4, 256), np.float32)], [0], [4], [1], [128], 4, 4, 1, **kw),
     "convert.pipeline_state_from_numpy": lambda **kw: pipeline_state_from_numpy(_state_arrays(), **kw),
+    "init_pipeline_state(with_viewer=True)": lambda **kw: init_pipeline_state(
+        2, to_port(SMALL_PARAMS), with_viewer=True, **kw),
+    "BallState.init": lambda **kw: BallState.init(2, 8, **kw),
+    "CalmnessGraphState.init": lambda **kw: CalmnessGraphState.init(2, 5, **kw),
+    "SpectrogramState.init": lambda **kw: SpectrogramState.init(2, 3, 8, **kw),
+    "convert.ball_state_from_numpy": lambda **kw: convert.ball_state_from_numpy(
+        convert.ball_state_to_numpy(BallState.init(2, 8, device="cpu")), **kw),
 }
 
 
@@ -292,7 +300,7 @@ def test_smoothing_horizons_equal_jax(scene):
     of ms at some bins (bin 420 at scene calmness 0 and default parameters):
     their bits decide the floor, so the port's equal the JAX package's bit
     for bit. On the card the quotients behind them are divided exactly
-    (models/analysis.py::_exact_div); chip_smoke.py holds a card server
+    (utils/rounding.py::exact_div); chip_smoke.py holds a card server
     against a CPU server on the same audio."""
     from pitchvis_tpu.models.analysis import _smoothing_horizons as jax_horizons
     from pitchvis_tpu_torch.models.analysis import _smoothing_horizons

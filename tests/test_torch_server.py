@@ -440,8 +440,25 @@ def test_retune_analysis_keeps_carries():
     dict(ml_model=object()), dict(with_led=True), dict(with_viewer=True), dict(fetch="led"), dict(mesh=object()),
 ])
 def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
-        StreamServer(2, to_port(SMALL_PARAMS), device="cpu", **option)
+    """ml_model= and mesh= are not ported and raise, naming their ROADMAP
+    item; the output stages (with_led, with_viewer, fetch="led") are ported
+    and serve a hop with their outputs (tests/test_torch_outputs.py holds
+    them against the JAX server)."""
+    if "ml_model" in option or "mesh" in option:
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
+            StreamServer(2, to_port(SMALL_PARAMS), device="cpu", **option)
+        return
+    srv = StreamServer(2, to_port(SMALL_PARAMS), buffer_seconds=1.0, device="cpu", **option)
+    try:
+        srv.push_batch(streams(2, int(SMALL_PARAMS.sr * 0.5), SMALL_PARAMS.sr, seed=4))
+        out, _ = srv.step(dt=DT)
+        assert (out.led is not None) == (option != dict(with_viewer=True))
+        if "with_viewer" in option:
+            assert out.viewer.balls.position.shape == (2, SMALL_PARAMS.n_buckets, 3)
+        if "fetch" in option:
+            assert type(out).__name__ == "CompactOutputs" and srv.with_led
+    finally:
+        srv.close()
 
 
 def test_validation():

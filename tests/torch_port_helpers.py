@@ -46,6 +46,65 @@ def streams(n_streams: int, n_samples: int, sr: float, seed: int) -> np.ndarray:
     return sig.astype(np.float32)
 
 
+def seeded_analysis_outputs(n_streams: int, n: int, seed: int) -> dict:
+    """One frame of analysis outputs for ``n_streams`` >= 3 streams of ``n``
+    bins, as NumPy arrays under the AnalysisOutputs field names, shaped like
+    what the analysis emits: peaks at least 2 bins apart, each peak's center
+    within one bin of it (exact half-bin offsets included), centers and sizes
+    zero off the peaks. Stream 0 has seeded peaks, stream 1 is silent (all
+    zeros), stream 2 has a run of peaks at the 2-bin minimum distance whose
+    centers key neighbouring bins, the rest seeded peaks like stream 0."""
+    assert n_streams >= 3
+    r = np.random.default_rng(seed)
+    peaks = np.zeros((n_streams, n), bool)
+    for s in range(n_streams):
+        if s == 1:
+            continue
+        if s == 2:
+            peaks[s, 3 : n // 2 : 2] = True
+            continue
+        i = 2
+        while i < n - 1:
+            if r.random() < 0.12:
+                peaks[s, i] = True
+                i += 2
+            else:
+                i += 1
+    offset = r.uniform(-1.0, 1.0, (n_streams, n))
+    offset[r.random((n_streams, n)) < 0.1] = 0.5
+    center = np.where(peaks, np.clip(np.arange(n) + offset, 0.0, n - 1.0), 0.0).astype(np.float32)
+    size = np.where(peaks, r.uniform(0.5, 30.0, (n_streams, n)), 0.0).astype(np.float32)
+    smoothed = r.uniform(0.0, 40.0, (n_streams, n)).astype(np.float32)
+    calmness = r.uniform(0.0, 1.0, (n_streams, n)).astype(np.float32)
+    accuracy = np.where(peaks, r.uniform(0.0, 1.0, (n_streams, n)), 0.0).astype(np.float32)
+    deviation = np.where(peaks, r.uniform(-0.5, 0.5, (n_streams, n)), 0.0).astype(np.float32)
+    out = {
+        "x_vqt_smoothed": smoothed,
+        "x_vqt_peakfiltered": np.where(peaks, smoothed, 0.0).astype(np.float32),
+        "x_vqt_afterglow": smoothed,
+        "peaks": peaks,
+        "peak_center": center,
+        "peak_size": size,
+        "calmness": calmness,
+        "pitch_accuracy": accuracy,
+        "pitch_deviation": deviation,
+        "scene_calmness": r.uniform(0.0, 1.0, n_streams).astype(np.float32),
+        "tuning_inaccuracy": r.uniform(0.0, 30.0, n_streams).astype(np.float32),
+    }
+    for k, v in out.items():
+        if k != "peaks":
+            v[1] = 0.0
+    return out
+
+
+def u8_within_one_level(got, want, share: float, what: str = "") -> None:
+    """u8-valued arrays (or levels as floats) within one level of each
+    other, in at most ``share`` of the values."""
+    d = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    assert d.max() <= 1.0, f"{what}: a level moved by {d.max()}"
+    assert (d > 0).mean() <= share, f"{what}: {(d > 0).sum()} of {d.size} levels flipped"
+
+
 def peaks_kernel_emulation(x, configs, distance, rounds, min_bin, step=32):
     """NumPy emulation, row by row, of the per-row algorithm of
     pitchvis_tpu_torch/csrc/peaks.cu in its candidates-only mode, stage by
