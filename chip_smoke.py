@@ -75,12 +75,33 @@ toolkit (nvcc). Phases, each of which fails the run on any error:
    ingest-server test's budget and the framing of the serial byte stream;
    and a StreamServer(2048, fetch="led") whose CompactOutputs.led equals a
    with_led server's (torch.equal) on the same pushes, with its hop time.
+7. runs the ML stage and its trainer at the trained width
+   (TRAIN_VQT_PARAMETERS: 7 octaves x 36 = 252 bins; PitchMLP at T=5,
+   mlp 1024, 2 layers, 7.4 M parameters): the VQT kernel at this geometry
+   (2 window groups, 233 and 19 filters) in bf16 and f32 against its plain
+   version at B=2048 and B=1, and the peaks kernel at 252 bins, 36 an octave
+   (both configurations and one, to convergence and one round, torch.equal
+   to its plain version) on the VQT's spectra at B=2048 and B=1, a rounded
+   random walk, and the ML pipeline's own spectra; 20 train steps of TrainConfig() (batch 300) on
+   a seeded synthetic task, with a falling loss, the step's time, launches
+   and device time, and one step (dropout 0) on the card against the same
+   step on the CPU (loss rtol 1e-5, each gradient within 1e-5 of its
+   leaf's largest, parameters atol 1e-6); train(epochs=1)
+   with a checkpoint under build/ (deleted after its load); then
+   StreamingPipeline(2048, TRAIN_VQT_PARAMETERS, path="pallas", fast=True,
+   ml_model=) with the weights it wrote, for 16 hops after two of warm-up,
+   beside the bare pipeline on the same audio; the ML stage alone under the
+   profiler; a hop under set_sync_debug_mode("error"); the stage on the card
+   against the CPU on one hop's history (outputs atol 1e-5, logits 1e-4 of
+   the largest); a StreamServer with the ML stage for 16 hops; and
+   step_multi(4) against 4 step()s with it at B=256 (torch.equal).
 
 It prints a JSON line of the VQT's times by part, one of the analysis step's
-launches and times, one of the output stages' numbers, one of per-kernel
-numbers (``launches`` summed over the pipeline's, the server's and the
-output-stage pipeline's measured hops, ``launches_by_path`` each), then the
-nvidia-smi line, and as its last line ``{"ok": true, "device": {...}}``.
+launches and times, one of the output stages' numbers, one of the ML phase's
+(``ml_stage``), one of per-kernel numbers (``launches`` summed over the
+pipeline's, the server's, the output-stage pipeline's and the ML pipeline's
+and server's measured hops, ``launches_by_path`` each), then the nvidia-smi
+line, and as its last line ``{"ok": true, "device": {...}}``.
 Without CUDA it exits 1 and prints no result.
 """
 
@@ -108,6 +129,8 @@ CPU_B = 64  # the server on the card against one on the CPU
 CPU_HOPS = 8
 LOOP_S = 2.0
 STAGE_HOPS = 16  # phase 6: hops of the pipeline with the output stages
+ML_HOPS = 16  # phase 7: hops of the pipeline and of the server with the ML stage
+TRAIN_STEPS = 20  # phase 7: full-width train steps
 
 # phase 6 tolerances. Card against CPU on the same inputs, those that the CPU
 # tests state against the JAX package (tests/test_torch_led.py,
@@ -124,6 +147,16 @@ STAGE_U8_SHARE = 1e-5
 # and cos)
 GOLDEN_U8_SHARE = 1e-4
 GOLDEN_FLOAT_ATOL = 1e-3
+# phase 7 tolerances, card against CPU, those that the CPU tests state
+# against the JAX package (tests/test_torch_ml.py, test_torch_train.py): the
+# model's outputs atol 1e-5, its logits within 1e-4 of the largest |logit|;
+# one train step (dropout 0, lr 1e-5) the loss rtol 1e-5, each gradient
+# within 1e-5 of its leaf's largest |gradient|, the parameters atol 1e-6
+ML_ATOL = 1e-5
+ML_LOGIT_REL = 1e-4
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_REL = 1e-5
+TRAIN_PARAM_ATOL = 1e-6
 
 # NVIDIA H100 SXM data sheet (dense): HBM bytes/s, FFMA, tf32 and bf16 tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -199,6 +232,57 @@ def device_trace(torch, fn, kernel: str | None = None, inner: int = 1, ops: list
     check(len(times_us) > 0, f"the profiler traced no device activity ({kernel or 'any kernel'})")
     total_ms = sum(times_us) / 1e3
     return len(times_us), total_ms / len(times_us) if kernel else total_ms
+
+
+def vqt_kernel_against_plain(torch, label, arrays, x):
+    """The VQT kernel against its plain version on frames ``x``: (power, max
+    dB difference, max power difference over the frame's maximum), checked
+    against VQT_DB_TOL and VQT_REL_TOL."""
+    from pitchvis_tpu_torch.ops import vqt_pallas as vqt_mod
+    from pitchvis_tpu_torch.ops.vqt import power_to_db
+
+    got = vqt_mod.vqt_power_pallas(arrays, x)
+    want = vqt_mod.vqt_power_pallas_plain(arrays, x)
+    torch.cuda.synchronize()
+    check(tuple(got.shape) == (x.shape[0], arrays.n_buckets), f"{label}: shape {tuple(got.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite power")
+    err_db = float((power_to_db(got) - power_to_db(want)).abs().max())
+    rel = float(((got - want).abs() / want.amax(dim=1, keepdim=True)).max())
+    print(f"{label}: max |dB| vs plain {err_db:.3e} (tol {VQT_DB_TOL}), "
+          f"max power err / frame max {rel:.3e} (tol {VQT_REL_TOL})")
+    check(err_db <= VQT_DB_TOL, f"{label}: {err_db} dB from its plain version")
+    check(rel <= VQT_REL_TOL, f"{label}: power {rel} of its frame's maximum from its plain version")
+    return got, err_db, rel
+
+
+def peaks_masks_against_plain(torch, label, xs, bpo) -> int:
+    """The peaks kernel's selected masks against its plain version on rows
+    ``xs`` at ``bpo`` bins an octave: AnalysisParameters' two configurations
+    (the smoothed spectrum's call) and one (the raw spectrum's), each to
+    convergence and for one suppression round, equal by torch.equal. Returns
+    in how many of the two calls one round left the first mask short of the
+    fixpoint."""
+    from pitchvis_tpu_torch.core.config import AnalysisParameters
+    from pitchvis_tpu_torch.ops import peaks_pallas as peaks_mod
+
+    ap = AnalysisParameters()
+    before = peaks_mod.launches
+    unconverged = 0
+    for configs in ((ap.bassline_peak_config, ap.peak_config), (ap.peak_config,)):
+        got = {}
+        for iters in (None, 1):
+            got[iters] = peaks_mod.find_peaks_masks(xs, configs, bpo, iters)
+            want = peaks_mod.find_peaks_masks_plain(xs, configs, bpo, iters)
+            check(len(got[iters]) == len(configs), f"peaks on {label}: {len(got[iters])} masks for {len(configs)} configurations")
+            for g, w in zip(got[iters], want):
+                check(g.dtype == torch.bool and g.shape == xs.shape, f"peaks on {label}: mask {g.dtype} {tuple(g.shape)}")
+                check(bool(torch.equal(g, w)), f"peaks kernel's selected masks differ from the plain version on {label} "
+                                               f"({len(configs)} configurations, suppress_iterations={iters})")
+        unconverged += int(not torch.equal(got[None][0], got[1][0]))
+    check(peaks_mod.launches == before + 4, f"peaks on {label}: a CUDA tensor did not reach the kernel")
+    print(f"peaks selection on {label}: masks equal to the plain version for 2 and 1 configurations, "
+          f"suppress_iterations None and 1 ({int(got[None][0].sum())} peaks under the general configuration)")
+    return unconverged
 
 
 def bound_ms(bytes_moved: float, ops: float, rate: float) -> tuple[float, str]:
@@ -314,7 +398,7 @@ def serving_phase(torch, params, counts, reset_counts) -> dict:
         t0 = time.perf_counter()
         srv.push_batch(blocks[h])
         t1 = time.perf_counter()
-        plan, vqt_params, (state, balls), window = srv._capture()
+        plan, vqt_params, (state, ml, balls), window = srv._capture()
         slot, _, adv = srv._consume_hop()
         t2 = time.perf_counter()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
@@ -331,7 +415,7 @@ def serving_phase(torch, params, counts, reset_counts) -> dict:
         new_state, _ = analysis_step_batch(plan.analysis_params, plan.rng, state, x_vqt, dt_b)
         ev[4].record()
         torch.cuda.synchronize()
-        check(srv._writeback(vqt_params, (new_state, balls), rolled), "split hop: write-back refused")
+        check(srv._writeback(vqt_params, (new_state, ml, balls), rolled), "split hop: write-back refused")
         for key, v in (("push_batch", t1 - t0), ("consume", t2 - t1), ("copy_enqueue", t3 - t2)):
             split[key].append(v * 1e3)
         for i, key in enumerate(("h2d_copy", "roll", "vqt + dB", "analysis (peaks x2)")):
@@ -810,6 +894,367 @@ def output_stages_phase(torch, params, counts, reset_counts, gen) -> tuple[dict,
     return stage_counts, numbers
 
 
+def synthetic_training_data(n_frames: int, seed: int, n_buckets: int = 252) -> np.ndarray:
+    """tests/test_ml.py's synthetic task at the trained width, in the
+    data.npy layout (flat rows of n_buckets VQT values + 128 MIDI targets):
+    per frame 0-2 dB of seeded noise a bin, and each of 12 keys (MIDI 36 to
+    91, a fourth apart) active with probability 1/2, lifting its three bins
+    (36 an octave from 55 Hz, MIDI 33) by 20 dB."""
+    rng = np.random.default_rng(seed)
+    keys = np.arange(36, 96, 5)
+    vqt = rng.random((n_frames, n_buckets), dtype=np.float32) * 2.0
+    active = rng.random((n_frames, len(keys))) > 0.5
+    midi = np.zeros((n_frames, 128), np.float32)
+    for i, k in enumerate(keys):
+        b = (k - 33) * 3
+        vqt[active[:, i], b - 1 : b + 2] += 20.0
+        midi[active[:, i], k] = 1.0
+    return np.concatenate([vqt, midi], axis=1).ravel()
+
+
+def ml_phase(torch, counts, reset_counts, gen) -> tuple[dict, dict]:
+    """Phase 7: the VQT and peaks kernels at TRAIN_VQT_PARAMETERS against
+    their plain versions; the trainer at full width (20 steps, the step's launches and
+    device time, one step on the card against the CPU, train(epochs=1) with
+    a checkpoint and its load); StreamingPipeline(2048, TRAIN_VQT_PARAMETERS,
+    path="pallas", fast=True, ml_model=) beside the bare pipeline, the ML
+    stage alone, a sync-free hop, the stage on the card against the CPU; a
+    StreamServer with the ML stage, and its step_multi(4) against 4 steps.
+    Returns (the ML paths' launch counts, the phase's numbers)."""
+    import dataclasses
+    import shutil
+
+    from pitchvis_tpu_torch import StreamingPipeline, StreamServer
+    from pitchvis_tpu_torch.core.config import TRAIN_VQT_PARAMETERS as tp
+    from pitchvis_tpu_torch.kernel.builder import get_kernel
+    from pitchvis_tpu_torch.models.ml_system import MlState, ml_step_batch, serving_copy
+    from pitchvis_tpu_torch.models.pipeline import derived_stages
+    from pitchvis_tpu_torch.ops import vqt_pallas as vqt_mod
+    from pitchvis_tpu_torch.ops.vqt import power_to_db
+    from pitchvis_tpu_torch.train.train import (
+        TrainConfig, load_checkpoint, make_model, make_optimizer, train, train_step, window_data,
+    )
+
+    numbers = {}
+    sr = tp.sr
+    hop = int(sr / 60.0)
+    dt = hop / sr
+
+    # (a) the VQT kernel at this slice's geometry, before anything is timed
+    kernel = get_kernel(tp)
+    frames = synthetic_audio(torch, B, tp.n_fft, sr, gen)
+    vqt = {}
+    for label, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        arrays = vqt_mod.PallasVqtArrays.from_kernel(kernel, dtype=dtype, device="cuda")
+        power, err_db, rel = vqt_kernel_against_plain(torch, f"vqt_power_{label} at TRAIN_VQT_PARAMETERS, B={B}",
+                                                  arrays, frames)
+        vqt_kernel_against_plain(torch, f"vqt_power_{label} at TRAIN_VQT_PARAMETERS, B=1", arrays, frames[:1])
+        ms = time_ms(torch, lambda: vqt_mod.vqt_power_pallas(arrays, frames))
+        _, card_ms = device_trace(torch, lambda: vqt_mod.vqt_power_pallas(arrays, frames), "vqt_kernel", inner=20)
+        vqt[label] = dict(max_db_err=err_db, max_rel_err=rel, ms=ms, card_ms=card_ms)
+        if dtype == torch.bfloat16:
+            spectra = power_to_db(power)
+        geometry = dict(tail=arrays.tail, window_sizes=list(arrays.window_sizes), offsets=list(arrays.offsets),
+                        nf=list(arrays.nf), nf_pad=list(arrays.nf_pad))
+    print(f"vqt at TRAIN_VQT_PARAMETERS ({tp.n_buckets} bins; geometry {json.dumps(geometry)}): "
+          f"{json.dumps(vqt)} (ms a call, on the card alone)")
+    numbers["vqt_train_params"] = dict(vqt, geometry=geometry)
+    del frames, arrays, power
+
+    # the peaks kernel at this slice's 252 bins, 36 an octave (its minimum
+    # separation and first allowed bin follow both): the bf16 kernel's dB
+    # spectra, one frame, and a rounded random walk (plateaus and ties)
+    bpo = tp.range.buckets_per_octave
+    walk = np.round(np.cumsum(np.random.default_rng(SEED).standard_normal((B, tp.n_buckets)), 1))
+    peak_cases = [(f"vqt spectra at TRAIN_VQT_PARAMETERS, B={B}", spectra),
+                  ("one frame at TRAIN_VQT_PARAMETERS", spectra[:1]),
+                  (f"rounded random walk of {tp.n_buckets} bins, B={B}",
+                   torch.from_numpy(walk.astype(np.float32)).cuda())]
+    unconverged = sum(peaks_masks_against_plain(torch, label, xs, bpo) for label, xs in peak_cases)
+    peak_labels = [label for label, _ in peak_cases]
+    del spectra, walk, peak_cases
+    torch.cuda.empty_cache()
+
+    # (b) the trainer at full width: TrainConfig() (the reference recipe:
+    # Adam lr 1e-5, batch 300, dropout 0.1) on the synthetic task
+    cfg = TrainConfig()
+    b = cfg.batch_size
+    x, y = window_data(synthetic_training_data(TRAIN_STEPS * b + cfg.t_window - 1, SEED), cfg)
+    xt, yt = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    model = make_model(cfg, device="cuda")
+    model.train()
+    optimizer, scheduler = make_optimizer(cfg, model)
+    tgen = torch.Generator(device="cuda").manual_seed(SEED)
+    losses, step_ms = [], []
+    for s in range(TRAIN_STEPS):
+        xb, yb = xt[s * b : (s + 1) * b], yt[s * b : (s + 1) * b]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(train_step(model, optimizer, xb, yb, scheduler, tgen))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    losses = [float(v) for v in losses]
+    check(all(np.isfinite(losses)), f"trainer: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"trainer: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+
+    def one_step():
+        return train_step(model, optimizer, xb, yb, scheduler, tgen)
+
+    step_launches, step_device_ms = max(device_trace(torch, one_step) for _ in range(3))
+    enqueue = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        one_step()
+        enqueue.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    # a forward and a backward (twice the forward's products) of the conv
+    # and the four dense layers, at the FFMA rate; the batch read once, and
+    # the parameters and Adam's two moments read and written once each
+    conv_macs = 16 * 5 * ((cfg.t_window * cfg.n_buckets - 5) // 2 + 1)
+    flops = 3 * 2.0 * b * (sum(layer.in_features * layer.out_features for layer in model.dense) + conv_macs)
+    step_bound, step_bound_by = bound_ms(6 * 4 * n_params + b * (x.shape[1] + 128) * 4, flops, F32_FLOPS)
+    trainer = dict(steps=TRAIN_STEPS, batch=b, params=n_params, losses=losses, step_ms=float(np.median(step_ms[1:])),
+                   step_min_ms=min(step_ms[1:]), step_max_ms=max(step_ms[1:]), first_step_ms=step_ms[0],
+                   launches=step_launches, device_ms=step_device_ms, enqueue_ms=float(np.median(enqueue)),
+                   bound_ms=step_bound, bound_by=step_bound_by)
+    print(f"trainer at full width ({n_params} parameters, batch {b}, {TRAIN_STEPS} steps of TrainConfig()): loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; step ms median {trainer['step_ms']:.3f} (min "
+          f"{trainer['step_min_ms']:.3f}, max {trainer['step_max_ms']:.3f}, first {step_ms[0]:.1f}); one step: "
+          f"{step_launches} device ops, {step_device_ms:.3f} ms on the card (profiler), {trainer['enqueue_ms']:.3f} "
+          f"ms to enqueue; bound {step_bound:.4f} ms ({step_bound_by}; {flops / 1e9:.1f} GFLOP)")
+    del model, optimizer, scheduler
+
+    # one step (dropout 0) on the card against the same step on the CPU: the
+    # same seed gives both the same weights
+    pcfg = dataclasses.replace(cfg, dropout=0.0)
+    pair = {d: make_model(pcfg, device=d) for d in ("cuda", "cpu")}
+    check(all(torch.equal(v.cpu(), pair["cpu"].state_dict()[k]) for k, v in pair["cuda"].state_dict().items()),
+          "trainer: one seed gave the card and the CPU different weights")
+    step_losses = {}
+    for d, m in pair.items():
+        m.train()
+        opt, sch = make_optimizer(pcfg, m)
+        step_losses[d] = float(train_step(m, opt, xt[:b].to(d), yt[:b].to(d), sch))
+    loss_rel = abs(step_losses["cuda"] - step_losses["cpu"]) / abs(step_losses["cpu"])
+    # the gradients train_step left on the parameters, leaf by leaf over the
+    # CPU leaf's largest |gradient|: Adam's update hardly depends on their
+    # size, so the parameters alone would not show a scaled or rounded backward
+    cpu_grads = dict(pair["cpu"].named_parameters())
+    grad_rel = max(float((p.grad.cpu() - cpu_grads[k].grad).abs().max() / cpu_grads[k].grad.abs().max())
+                   for k, p in pair["cuda"].named_parameters())
+    cpu_sd = pair["cpu"].state_dict()
+    param_err = max(float((v.cpu() - cpu_sd[k]).abs().max()) for k, v in pair["cuda"].state_dict().items())
+    print(f"train step on the card vs on the CPU (same weights and batch, dropout 0): loss rel err {loss_rel:.3e} "
+          f"(tol {TRAIN_LOSS_RTOL}), max |grad diff| / leaf's max |grad| {grad_rel:.3e} (tol {TRAIN_GRAD_REL}), "
+          f"max |param diff| {param_err:.3e} (tol {TRAIN_PARAM_ATOL})")
+    check(loss_rel <= TRAIN_LOSS_RTOL and grad_rel <= TRAIN_GRAD_REL and param_err <= TRAIN_PARAM_ATOL,
+          "train step: card and CPU disagree")
+    trainer.update(card_vs_cpu_loss_rel_err=loss_rel, card_vs_cpu_grad_rel_err=grad_rel,
+                   card_vs_cpu_param_max_err=param_err)
+    del pair, xt, yt
+
+    # train(epochs=1) with a checkpoint under build/ (gitignored), and its load
+    ckpt_dir = os.path.join(ROOT, "build", "ml_phase_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    small = dataclasses.replace(cfg, epochs=1)
+    t = time.perf_counter()
+    params, metrics = train(synthetic_training_data(1204, SEED + 4), small, checkpoint_dir=ckpt_dir, device="cuda")
+    train_s = time.perf_counter() - t
+    loaded = load_checkpoint(ckpt_dir, small, device="cuda")
+    check(set(loaded) == set(params) and all(torch.equal(loaded[k], params[k]) for k in params),
+          "load_checkpoint differs from what train() saved")
+    del params
+    files = sorted(os.listdir(ckpt_dir))
+    shutil.rmtree(ckpt_dir)
+    trainer.update(train_epoch_s=train_s, train_metrics=metrics)
+    print(f"train(epochs=1) on 1200 windows: {metrics['steps']} steps in {train_s:.2f} s, epoch loss "
+          f"{metrics['epoch_loss']}, micro-F1 {metrics['f1_micro']:.3f}; checkpoint {files} written and loaded equal")
+    numbers["trainer"] = trainer
+    ml_model = make_model(small, device="cuda")
+
+    # (c) the pipeline hop with the ML stage, then the bare pipeline on the
+    # same audio
+    warm = 2
+    audio = synthetic_audio(torch, B, (warm + ML_HOPS + 2) * hop, sr, gen)
+
+    def chunk(h):
+        return audio[:, h * hop : (h + 1) * hop]
+
+    def run(pipe, counted):
+        for h in range(warm):
+            pipe.step(chunk(h), dt)
+        torch.cuda.synchronize()
+        if counted:
+            reset_counts()
+        ms = []
+        for h in range(warm, warm + ML_HOPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = pipe.step(chunk(h), dt)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return out, ms, (counts() if counted else None)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = StreamingPipeline(B, tp, path="pallas", fast=True, ml_model=ml_model, ml_params=loaded, device="cuda")
+    out, ml_ms, pipe_counts = run(pipe, True)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    want = {"vqt": ML_HOPS, "peaks": 2 * ML_HOPS, "agc": ML_HOPS}
+    check(pipe_counts == want, f"ML pipeline: launches {pipe_counts}, expected {want}")
+    midi = out.ml_midi
+    check(tuple(midi.shape) == (B, 128) and bool(torch.isfinite(midi).all())
+          and bool(((midi >= 0) & (midi <= 1)).all()), f"ml_midi: {tuple(midi.shape)}, not finite or outside [0, 1]")
+    check(pipe.ml_model is not ml_model and not any(p.requires_grad for p in pipe.ml_model.parameters()),
+          "the pipeline does not serve its own frozen copy")
+    # the peaks kernel on the spectra this path fed it in its last hop
+    for label, xs in (("the ML pipeline's smoothed spectra", out.analysis.x_vqt_smoothed),
+                      ("the ML pipeline's spectra", out.x_vqt)):
+        unconverged += peaks_masks_against_plain(torch, f"{label}, B={B}", xs, bpo)
+        peak_labels.append(label)
+    numbers["peaks_train_params"] = dict(bpo=bpo, n=tp.n_buckets, cases=peak_labels, masks_equal=True,
+                                         one_round_short=unconverged)
+    bare = StreamingPipeline(B, tp, path="pallas", fast=True, device="cuda")
+    _, bare_ms, _ = run(bare, False)
+    del bare
+    torch.cuda.empty_cache()
+    med, bare_med = float(np.median(ml_ms)), float(np.median(bare_ms))
+    print(f"ML hop: {ML_HOPS} hops at B={B} (StreamingPipeline TRAIN_VQT_PARAMETERS path=pallas fast=True "
+          f"ml_model, the model train(epochs=1) wrote), hop ms median {med:.3f} (min {min(ml_ms):.3f}, max "
+          f"{max(ml_ms):.3f}); the bare pipeline right after on the same audio {bare_med:.3f} (min "
+          f"{min(bare_ms):.3f}, max {max(bare_ms):.3f}); peak device memory {peak_gib:.2f} GiB; launches "
+          f"{pipe_counts}; ml_midi in [{float(midi.min()):.3e}, {float(midi.max()):.3e}], mean {float(midi.mean()):.3e}")
+
+    # the ML stage alone: device ops and time (the fullest of three traces),
+    # the host's enqueue and the wall time (median of 5, not profiled)
+    dt_b = torch.full((B,), dt, dtype=torch.float32, device="cuda")
+    history = pipe.state.ml
+
+    def stage():
+        return derived_stages(tp.range, out.analysis, dt_b, ml_model=pipe.ml_model, ml_state=history)
+
+    launches, device_ms = max(device_trace(torch, stage) for _ in range(3))
+    enqueue, wall = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stage()
+        enqueue.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t) * 1e3)
+    # a forward of the ML stage: the conv and four dense products at the
+    # FFMA rate; the history, the new spectra and the weights read once, the
+    # new history and the outputs written once
+    flops = 2.0 * B * (sum(layer.in_features * layer.out_features for layer in pipe.ml_model.dense)
+                       + 16 * 5 * ((pipe.ml_model.input_bins - 5) // 2 + 1))
+    moved = (2 * history.history.numel() + B * tp.n_buckets + B * 128) * 4 + 4 * sum(
+        p.numel() for p in pipe.ml_model.parameters())
+    s_bound, s_bound_by = bound_ms(moved, flops, F32_FLOPS)
+    alone = dict(launches=launches, device_ms=device_ms, enqueue_ms=float(np.median(enqueue)),
+                 wall_ms=float(np.median(wall)), bound_ms=s_bound, bound_by=s_bound_by, gflop=flops / 1e9)
+    print(f"ML stage alone at B={B} (derived_stages with ml_model; launches and device ms from the profiler, enqueue "
+          f"and wall ms by the host clock): {json.dumps(alone)}")
+
+    # one hop with the ML stage under set_sync_debug_mode("error")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pipe.step(chunk(warm + ML_HOPS), dt)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f'ML hop at B={B} under set_sync_debug_mode("error"): no host synchronisation')
+
+    # the stage on the card against the CPU: the same history, spectra and weights
+    before = pipe.state.ml
+    out = pipe.step(chunk(warm + ML_HOPS + 1), dt)
+    cpu_model = serving_copy(pipe.ml_model, None, "cpu")
+    t = time.perf_counter()
+    cpu_state, cpu_midi = ml_step_batch(cpu_model, None, MlState(history=before.history.cpu()),
+                                        out.analysis.x_vqt_smoothed.cpu())
+    cpu_s = time.perf_counter() - t
+    check(torch.equal(pipe.state.ml.history.cpu(), cpu_state.history), "ML history: card and CPU differ")
+    out_err = float((out.ml_midi.cpu() - cpu_midi).abs().max())
+    with torch.no_grad():
+        card_logits = pipe.ml_model.logits(pipe.state.ml.history.reshape(B, 1, -1)).cpu()
+        cpu_logits = cpu_model.logits(cpu_state.history.reshape(B, 1, -1))
+    logit_err = float((card_logits - cpu_logits).abs().max())
+    logit_max = float(cpu_logits.abs().max())
+    print(f"ML stage on the card vs on the CPU (one hop's history and spectra, B={B}, the CPU's run {cpu_s:.2f} s): "
+          f"outputs max |diff| {out_err:.3e} (tol {ML_ATOL}), logits max |diff| {logit_err:.3e} of max |logit| "
+          f"{logit_max:.3e} (tol {ML_LOGIT_REL} of it), histories equal")
+    check(out_err <= ML_ATOL and logit_err <= ML_LOGIT_REL * logit_max, "ML stage: card and CPU disagree")
+    del pipe, out, history, before, audio, cpu_model, cpu_state
+    torch.cuda.empty_cache()
+
+    # (d) a server with the ML stage: 16 hops at B=2048
+    n_blocks = ML_HOPS + 1
+    sig = synthetic_audio(torch, B, int(sr) + n_blocks * hop, sr, gen).cpu().numpy()
+    blocks = [sig[:, int(sr) + i * hop : int(sr) + (i + 1) * hop] for i in range(n_blocks)]
+    srv = StreamServer(B, tp, path="pallas", fast=True, ml_model=ml_model, ml_params=loaded, device="cuda")
+    server_ms = []
+    try:
+        srv.push_batch(sig[:, : int(sr)])
+        srv.step(dt=dt)
+        srv.push_batch(blocks[0])
+        srv.step(dt=dt)
+        torch.cuda.synchronize()
+        reset_counts()
+        for h in range(1, n_blocks):
+            srv.push_batch(blocks[h])
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sout, _ = srv.step(dt=dt)
+            torch.cuda.synchronize()
+            server_ms.append((time.perf_counter() - t) * 1e3)
+            check(bool(torch.isfinite(sout.ml_midi).all()), f"ML server: non-finite ml_midi at hop {h}")
+        server_counts = counts()
+    finally:
+        srv.close()
+    want = {"vqt": ML_HOPS, "peaks": 2 * ML_HOPS, "agc": 0}
+    check(server_counts == want, f"ML server: launches {server_counts}, expected {want}")
+    server_med = float(np.median(server_ms))
+    print(f"ML server hop: {ML_HOPS} hops at B={B} (StreamServer TRAIN_VQT_PARAMETERS path=pallas fast=True ml_model), "
+          f"hop ms median {server_med:.3f} (min {min(server_ms):.3f}, max {max(server_ms):.3f}); launches {server_counts}")
+    del sig, blocks
+
+    # step_multi(4) with the ML stage against 4 step()s, at B=EQ_B
+    eq_sig = synthetic_audio(torch, EQ_B, int(sr) + 4 * hop, sr, gen).cpu().numpy()
+    servers = [StreamServer(EQ_B, tp, path="pallas", fast=True, ml_model=ml_model, ml_params=loaded,
+                            buffer_seconds=2.0, device="cuda") for _ in range(2)]
+    try:
+        for s in servers:
+            s.push_batch(eq_sig[:, : int(sr)])
+            s.step(dt=dt)
+        singles, multi = servers
+        for i in range(4):
+            blk = eq_sig[:, int(sr) + i * hop : int(sr) + (i + 1) * hop]
+            singles.push_batch(blk)
+            multi.push_batch(blk)
+            last_single, _ = singles.step(dt=dt)
+        last_multi, _ = multi.step_multi(4)
+        check(torch.equal(last_multi.ml_midi, last_single.ml_midi)
+              and outputs_equal(torch, last_multi.analysis, last_single.analysis)
+              and torch.equal(multi.ml_state.history, singles.ml_state.history)
+              and torch.equal(multi._window, singles._window), "ML server: step_multi(4) differs from 4 step()s")
+    finally:
+        for s in servers:
+            s.close()
+    print(f"ML server at B={EQ_B}: step_multi(4) == 4 step()s (torch.equal: ml_midi, analysis outputs, history, window)")
+
+    numbers.update(
+        hop_ms=med, hop_min_ms=min(ml_ms), hop_max_ms=max(ml_ms), bare_hop_ms=bare_med, bare_hop_min_ms=min(bare_ms),
+        bare_hop_max_ms=max(bare_ms), peak_gib=peak_gib, stage_alone=alone, card_vs_cpu_out_err=out_err,
+        card_vs_cpu_logit_err=logit_err, card_vs_cpu_logit_max=logit_max, server_hop_ms=server_med,
+        server_hop_min_ms=min(server_ms), server_hop_max_ms=max(server_ms),
+    )
+    path_counts = {k: pipe_counts[k] + server_counts[k] for k in pipe_counts}
+    return path_counts, numbers
+
+
 def main() -> None:
     import torch
 
@@ -868,20 +1313,6 @@ def main() -> None:
     frames = synthetic_audio(torch, B, params.n_fft, sr, gen)
     kernels = {}
 
-    def vqt_against_plain(label, arrays, x):
-        got = vqt_mod.vqt_power_pallas(arrays, x)
-        want = vqt_mod.vqt_power_pallas_plain(arrays, x)
-        torch.cuda.synchronize()
-        check(tuple(got.shape) == (x.shape[0], arrays.n_buckets), f"{label}: shape {tuple(got.shape)}")
-        check(bool(torch.isfinite(got).all()), f"{label}: non-finite power")
-        err_db = float((power_to_db(got) - power_to_db(want)).abs().max())
-        rel = float(((got - want).abs() / want.amax(dim=1, keepdim=True)).max())
-        print(f"{label}: max |dB| vs plain {err_db:.3e} (tol {VQT_DB_TOL}), "
-              f"max power err / frame max {rel:.3e} (tol {VQT_REL_TOL})")
-        check(err_db <= VQT_DB_TOL, f"{label}: {err_db} dB from its plain version")
-        check(rel <= VQT_REL_TOL, f"{label}: power {rel} of its frame's maximum from its plain version")
-        return got, err_db, rel
-
     vqt_times = {}
     # the f32 mode makes three tf32 products for each f32 one (3xTF32), so
     # its bound counts three times the multiply-adds at the tf32 rate
@@ -890,10 +1321,10 @@ def main() -> None:
         ("vqt_power_bf16", torch.bfloat16, BF16_FLOPS, 1, "pitchvis_tpu/ops/vqt_pallas.py:291"),
     ):
         arrays = vqt_mod.PallasVqtArrays.from_kernel(kernel, dtype=dtype, device=dev)
-        got, err_db, _ = vqt_against_plain(label, arrays, frames)
+        got, err_db, _ = vqt_kernel_against_plain(torch, label, arrays, frames)
         # one frame, and a batch that is no multiple of the kernel's frame tile
         for b in (1, 130):
-            vqt_against_plain(f"{label} at B={b}", arrays, frames[:b])
+            vqt_kernel_against_plain(torch, f"{label} at B={b}", arrays, frames[:b])
 
         tail = frames[:, params.n_fft - arrays.tail :]
         xs = tail.to(dtype)
@@ -963,8 +1394,8 @@ def main() -> None:
     rel = float(((got - want64).abs() / want64.abs().clamp_min(1e-12)).max())
     print(f"vqt ragged K-tiles (sizes {sizes}): max rel err vs float64 {rel:.3e} (tol 2e-4)")
     check(rel <= 2e-4, "VQT kernel with a short final K-tile disagrees")
-    vqt_against_plain("vqt ragged f32", ragged, xr)
-    vqt_against_plain("vqt ragged bf16", ragged_bf16, xr)
+    vqt_kernel_against_plain(torch, "vqt ragged f32", ragged, xr)
+    vqt_kernel_against_plain(torch, "vqt ragged bf16", ragged_bf16, xr)
     # frames whose base address and row stride are no multiples of 16 bytes
     # go through an aligned copy, never to the plain version
     wide = torch.zeros((5, tail_len + 3), dtype=torch.float32, device=dev)
@@ -1020,23 +1451,7 @@ def main() -> None:
     ap = AnalysisParameters()
     two = (ap.bassline_peak_config, ap.peak_config)
     one = (ap.peak_config,)
-    unconverged = 0
-    for label, xs in cases:
-        before = peaks_mod.launches
-        for configs in (two, one):
-            got = {}
-            for iters in (None, 1):
-                got[iters] = peaks_mod.find_peaks_masks(xs, configs, bpo, iters)
-                want = peaks_mod.find_peaks_masks_plain(xs, configs, bpo, iters)
-                check(len(got[iters]) == len(configs), f"peaks on {label}: {len(got[iters])} masks for {len(configs)} configurations")
-                for g, w in zip(got[iters], want):
-                    check(g.dtype == torch.bool and g.shape == xs.shape, f"peaks on {label}: mask {g.dtype} {tuple(g.shape)}")
-                    check(bool(torch.equal(g, w)), f"peaks kernel's selected masks differ from the plain version on {label} "
-                                                   f"({len(configs)} configurations, suppress_iterations={iters})")
-            unconverged += int(not torch.equal(got[None][0], got[1][0]))
-        check(peaks_mod.launches == before + 4, f"peaks on {label}: a CUDA tensor did not reach the kernel")
-        print(f"peaks selection on {label}: masks equal to the plain version for 2 and 1 configurations, "
-              f"suppress_iterations None and 1 ({int(got[None][0].sum())} peaks under the general configuration)")
+    unconverged = sum(peaks_masks_against_plain(torch, label, xs, bpo) for label, xs in cases)
     check(unconverged > 0, "no case left one suppression round short of the fixpoint")
     before = peaks_mod.launches
     empty = peaks_mod.find_peaks_masks(spectra[:0], two, bpo)
@@ -1343,10 +1758,18 @@ def main() -> None:
 
     # ---- 6. the output stages --------------------------------------------------
     stage_counts, stage_numbers = output_stages_phase(torch, params, counts, reset_counts, gen)
+
+    # ---- 7. the ML stage and its trainer -----------------------------------------
+    # under torch's default cudnn flags (TF32 allowed), which the top of this
+    # function turned off: the card-vs-CPU checks then see what the ML stage
+    # and the trainer do in a caller's process
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False, allow_tf32=True):
+        ml_counts, ml_numbers = ml_phase(torch, counts, reset_counts, gen)
     for label, key in (("vqt_power_bf16", "vqt"), ("vqt_power_f32", "vqt"), ("peaks", "peaks"), ("agc", "agc")):
         by_path = {"pipeline": kernels[label]["launches"],
                    "server": server_counts[key] if label != "vqt_power_f32" else 0,
-                   "output_stages": stage_counts[key] if label != "vqt_power_f32" else 0}
+                   "output_stages": stage_counts[key] if label != "vqt_power_f32" else 0,
+                   "ml": ml_counts[key] if label != "vqt_power_f32" else 0}
         kernels[label]["launches_by_path"] = by_path
         kernels[label]["launches"] = sum(by_path.values())
 
@@ -1354,6 +1777,7 @@ def main() -> None:
     print(json.dumps({"vqt_times": vqt_times}))
     print(json.dumps({"analysis_step": analysis_profile}))
     print(json.dumps({"output_stages": stage_numbers}))
+    print(json.dumps({"ml_stage": ml_numbers}))
     print(json.dumps({"kernels": [kernels[n] for n in order]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

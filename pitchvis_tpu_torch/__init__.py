@@ -3,8 +3,10 @@
 The streaming hop (ring + AGC -> fused VQT -> analysis) runs on an NVIDIA
 H100 through three hand-written CUDA kernels (csrc/: VQT, peak primitives,
 AGC), each with a plain PyTorch version that runs for CPU tensors. The
-output stages after the analysis, the LED color block (io/led.py) and the
-viewer's display outputs (models/viewer.py), are plain PyTorch. The
+stages after the analysis, the ML inference (models/pitch_mlp.py,
+models/ml_system.py), the LED color block (io/led.py) and the viewer's
+display outputs (models/viewer.py), are plain PyTorch, as is the model's
+trainer (train/train.py). The
 serving runtime (``StreamServer``, ``ServeLoop``; runtime/) feeds the same
 VQT, analysis and output stages from a native ingest ring bank with AGC in
 C++ on the host (native/, built with g++ at first use). Entry points run on the card unless
@@ -28,6 +30,8 @@ from .models.analysis import (
     analysis_step_batch,
     init_state_batch,
 )
+from .models.ml_system import MlState, init_ml_state_batch, ml_step_batch
+from .models.pitch_mlp import PitchMLP
 from .models.pipeline import (
     PipelineOutputs,
     PipelineState,
@@ -67,6 +71,10 @@ __all__ = [
     "AnalysisState",
     "analysis_step_batch",
     "init_state_batch",
+    "MlState",
+    "init_ml_state_batch",
+    "ml_step_batch",
+    "PitchMLP",
     "PipelineOutputs",
     "PipelineState",
     "StreamingPipeline",

@@ -4,8 +4,9 @@ Nothing here imports JAX: the caller hands over ``np.asarray`` of the JAX
 package's arrays (a bf16 array arrives as NumPy's ``bfloat16`` extension
 dtype and is reinterpreted bit for bit). With these a test starts both
 packages from the same weights and the same mid-stream state, a pipeline's
-or a server's. Like every entry point, these put their tensors on the card
-unless given ``device="cpu"``, and raise without CUDA.
+or a server's, and a PitchMLP's flax parameters (a trained checkpoint)
+become the port's state_dict. Like every entry point, these put their
+tensors on the card unless given ``device="cpu"``, and raise without CUDA.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 
 from .core.device import resolve_device
 from .models.analysis import AnalysisState
+from .models.ml_system import MlState
 from .models.pipeline import PipelineState
 from .models.viewer import BALL_LEAVES, BallState
 from .ops.vqt import VqtArrays
@@ -92,12 +94,52 @@ def ball_state_to_numpy(balls: BallState) -> dict:
     return {k: tensor_to_numpy(getattr(balls, k)) for k in BALL_LEAVES}
 
 
+def pitch_mlp_params_from_numpy(tree: dict, device="cuda") -> dict:
+    """A flax PitchMLP parameter tree, ``{"params": {"Conv_0": {"kernel",
+    "bias"}, "Dense_0": ..., "Dense_<mlp_layers + 1>": ...}}`` with NumPy
+    leaves, as the port's state_dict: the conv kernel (5, 1, 16) becomes
+    ``conv.weight`` (16, 1, 5), each Dense kernel (in, out) a Linear weight
+    (out, in) under ``dense.<i>.weight``."""
+    device = resolve_device(device)
+    p = tree["params"]
+    sd = {
+        "conv.weight": tensor_from_numpy(np.transpose(np.asarray(p["Conv_0"]["kernel"]), (2, 1, 0)), device),
+        "conv.bias": tensor_from_numpy(p["Conv_0"]["bias"], device),
+    }
+    n_dense = sum(1 for k in p if k.startswith("Dense_"))
+    for i in range(n_dense):
+        layer = p[f"Dense_{i}"]
+        sd[f"dense.{i}.weight"] = tensor_from_numpy(np.asarray(layer["kernel"]).T, device)
+        sd[f"dense.{i}.bias"] = tensor_from_numpy(layer["bias"], device)
+    return sd
+
+
+def pitch_mlp_params_to_numpy(state_dict: dict) -> dict:
+    """The inverse of pitch_mlp_params_from_numpy: the flax tree with
+    NumPy leaves."""
+    p = {"Conv_0": {
+        "kernel": np.ascontiguousarray(np.transpose(tensor_to_numpy(state_dict["conv.weight"]), (2, 1, 0))),
+        "bias": tensor_to_numpy(state_dict["conv.bias"]),
+    }}
+    n_dense = sum(1 for k in state_dict if k.startswith("dense.") and k.endswith(".weight"))
+    for i in range(n_dense):
+        p[f"Dense_{i}"] = {
+            "kernel": np.ascontiguousarray(tensor_to_numpy(state_dict[f"dense.{i}.weight"]).T),
+            "bias": tensor_to_numpy(state_dict[f"dense.{i}.bias"]),
+        }
+    return {"params": p}
+
+
 def pipeline_state_from_numpy(arrays: dict, device="cuda") -> PipelineState:
     """``arrays``: "buffer" (B, L), "gain" (B,) and the six analysis leaves
-    (ANALYSIS_LEAVES) with their leading stream axis, and for a pipeline
-    with the viewer stage its ball carry as "balls_<leaf>" for each of
+    (ANALYSIS_LEAVES) with their leading stream axis; for a pipeline with
+    the ML stage its history (B, T, n_buckets) as "ml_history", and with the
+    viewer stage its ball carry as "balls_<leaf>" for each of
     BALL_LEAVES."""
     device = resolve_device(device)
+    ml = None
+    if "ml_history" in arrays:
+        ml = MlState(history=tensor_from_numpy(arrays["ml_history"], device).float())
     balls = None
     if "balls_scale" in arrays:
         balls = ball_state_from_numpy({k: arrays["balls_" + k] for k in BALL_LEAVES}, device)
@@ -109,6 +151,7 @@ def pipeline_state_from_numpy(arrays: dict, device="cuda") -> PipelineState:
         analysis=AnalysisState(
             **{k: tensor_from_numpy(arrays[k], device).float() for k in ANALYSIS_LEAVES}
         ),
+        ml=ml,
         balls=balls,
     )
 
@@ -120,13 +163,16 @@ def pipeline_state_to_numpy(state: PipelineState) -> dict:
     }
     for k in ANALYSIS_LEAVES:
         out[k] = tensor_to_numpy(getattr(state.analysis, k))
+    if state.ml is not None:
+        out["ml_history"] = tensor_to_numpy(state.ml.history)
     if state.balls is not None:
         for k, v in ball_state_to_numpy(state.balls).items():
             out["balls_" + k] = v
     return out
 
 
-def server_state_from_numpy(server, rings, analysis: dict, window=None, balls: dict | None = None) -> None:
+def server_state_from_numpy(server, rings, analysis: dict, window=None, balls: dict | None = None,
+                            ml_history=None) -> None:
     """Carries a JAX ``StreamServer``'s state into a port ``StreamServer``
     of the same shape, so the port continues it mid-stream.
 
@@ -139,17 +185,23 @@ def server_state_from_numpy(server, rings, analysis: dict, window=None, balls: d
     the next push). Without one, the port's next step re-materializes the
     window from the ring, as after a restore. ``balls`` is the JAX server's
     ball carry (``balls_state``) by the names of BALL_LEAVES, for a server
-    with the viewer stage."""
+    with the viewer stage; ``ml_history`` its ML history
+    (``ml_state.history``, (B, T, n_buckets)), for a server with the ML
+    stage."""
     if (balls is not None) != server.with_viewer:
         raise ValueError("balls must be given exactly when the server has the viewer stage")
+    if (ml_history is not None) != (server.ml_model is not None):
+        raise ValueError("ml_history must be given exactly when the server has the ML stage")
     audio, heads, gains = rings
     server.rings.import_state(audio, heads, gains)
     state = AnalysisState(
         **{k: tensor_from_numpy(analysis[k], server.device).float() for k in ANALYSIS_LEAVES}
     )
     ball_state = ball_state_from_numpy(balls, server.device) if balls is not None else None
+    ml_state = MlState(history=tensor_from_numpy(ml_history, server.device).float()) if ml_history is not None else None
     with server._state_lock:
         server.analysis_state = state
+        server.ml_state = ml_state
         server.balls_state = ball_state
         if window is None:
             server._window = None

@@ -2,9 +2,9 @@
 
 Port of ``pitchvis_tpu/runtime/checkpoint.py``. A long-running multi-stream
 server wants its carried state (ring audio, AGC gains, EMA/calmness
-carries, the viewer stage's ball-fade carry) to survive restarts; the
-parameter set and the output-stage flags are stored beside it so a
-restore can rebuild the matching kernel. The JAX package saves its carries
+carries, the ML stage's history, the viewer stage's ball-fade carry) to
+survive restarts; the parameter set and the output-stage flags are stored
+beside it so a restore can rebuild the matching kernel. The JAX package saves its carries
 through orbax, which needs JAX; the port saves them with ``np.savez`` and
 reads only its own checkpoints (the metadata files and the ring image have
 the JAX package's names and keys, the carries do not). Every save is
@@ -36,6 +36,7 @@ from ..core.config import (
     VqtRange,
 )
 from ..models.analysis import AnalysisState
+from ..models.ml_system import MlState
 from ..models.pipeline import PipelineState
 from ..models.viewer import BALL_LEAVES
 from ..stream.ring import RingState
@@ -120,15 +121,17 @@ def save_pipeline_state(
     (``load_pipeline_config`` returns them)."""
     path = os.path.abspath(path)
     tmp = _stage_dir(path)
-    balls = {}
+    stages = {}
+    if state.ml is not None:
+        stages["ml_history"] = tensor_to_numpy(state.ml.history)
     if state.balls is not None:
-        balls = {"balls_" + k: v for k, v in ball_state_to_numpy(state.balls).items()}
+        stages.update({"balls_" + k: v for k, v in ball_state_to_numpy(state.balls).items()})
     np.savez(
         os.path.join(tmp, "pipeline_state.npz"),
         buffer=tensor_to_numpy(state.ring.buffer),
         gain=tensor_to_numpy(state.ring.gain),
         **_analysis_arrays(state.analysis),
-        **balls,
+        **stages,
     )
     meta = {
         "params": dataclasses.asdict(params),
@@ -138,9 +141,7 @@ def save_pipeline_state(
         "agc_params": dataclasses.asdict(agc_params) if agc_params is not None else None,
         "n_streams": int(state.ring.buffer.shape[0]),
         "buffer_len": int(state.ring.buffer.shape[1]),
-        # the JAX package's key for its ML carry, which the port's pipeline
-        # does not have yet
-        "ml_t_window": None,
+        "ml_t_window": int(state.ml.history.shape[1]) if state.ml is not None else None,
         "with_viewer": state.balls is not None,
     }
     with open(os.path.join(tmp, "pipeline_meta.json"), "w") as f:
@@ -172,12 +173,15 @@ def load_pipeline_state(path: str, device="cuda") -> tuple[PipelineState, VqtPar
         meta = json.load(f)
     params = _vqt_params_from_dict(meta["params"])
     with np.load(os.path.join(path, "pipeline_state.npz")) as z:
-        balls = None
+        ml = balls = None
+        if meta.get("ml_t_window"):
+            ml = MlState(history=tensor_from_numpy(z["ml_history"], device))
         if meta.get("with_viewer", False):
             balls = ball_state_from_numpy({k: z["balls_" + k] for k in BALL_LEAVES}, device)
         state = PipelineState(
             ring=RingState(buffer=tensor_from_numpy(z["buffer"], device), gain=tensor_from_numpy(z["gain"], device)),
             analysis=_analysis_state(z, device),
+            ml=ml,
             balls=balls,
         )
     if tuple(state.ring.buffer.shape) != (meta["n_streams"], meta["buffer_len"]):
@@ -193,9 +197,11 @@ def load_pipeline_state(path: str, device="cuda") -> tuple[PipelineState, VqtPar
 def save_server_state(path: str, server) -> None:
     """Checkpoints a running StreamServer: the native ring bank image (audio
     windows, total-written counters, AGC gains), the per-stream analysis
-    carries and ball carry (with the viewer stage), and the parameter set
-    and serving flags (output stages included) needed to rebuild the
-    matching server on restore.
+    carries, the ML history (with the ML stage) and the ball carry (with the
+    viewer stage), and the parameter set and serving flags (output stages
+    and the ML window included) needed to rebuild the matching server on
+    restore. The model itself is code and weights, not serving state: the
+    caller passes it again to restore_server.
 
     The carries are captured first and the ring image after, not as one
     atomic cut: streams that receive audio during the save may be up to one
@@ -207,6 +213,7 @@ def save_server_state(path: str, server) -> None:
     tmp = _stage_dir(path)
     with server._state_lock:
         state = server.analysis_state
+        ml_state = server.ml_state
         balls = server.balls_state
         vqt_params = server.vqt_params
         analysis_params = server.analysis_params
@@ -214,6 +221,8 @@ def save_server_state(path: str, server) -> None:
     audio, heads, gains = server.rings.export_state()
     np.savez_compressed(os.path.join(tmp, "server_rings.npz"), audio=audio, heads=heads, gains=gains)
     np.savez(os.path.join(tmp, "server_analysis_state.npz"), **carries)
+    if ml_state is not None:
+        np.savez(os.path.join(tmp, "server_ml_state.npz"), history=tensor_to_numpy(ml_state.history))
     if balls is not None:
         np.savez(os.path.join(tmp, "server_balls_state.npz"), **ball_state_to_numpy(balls))
     meta = {
@@ -230,9 +239,8 @@ def save_server_state(path: str, server) -> None:
         "with_led": server.with_led,
         "with_viewer": server.with_viewer,
         "fetch": server.fetch,
-        # the JAX server's ML stage, which the port's server does not have yet
-        "ml_t_window": None,
-        "has_ml_state": False,
+        "ml_t_window": server._ml_t,
+        "has_ml_state": ml_state is not None,
     }
     with open(os.path.join(tmp, "server_meta.json"), "w") as f:
         json.dump(meta, f)
@@ -247,8 +255,11 @@ def restore_server(path: str, ml_model=None, ml_params=None, mesh=None, device="
     window is re-materialized from the ring on the first step. The output
     stages (``with_led``, ``with_viewer``, ``fetch``) are restored with the
     ball carry. Producers re-attach to their previous slots afterwards.
-    ``ml_model``/``ml_params``/``mesh`` are the JAX signature's and raise
-    NotImplementedError, as the server does."""
+
+    ``ml_model``/``ml_params`` re-attach the model a checkpointed ML-serving
+    server used (``ml_params`` None: the module's own weights); a checkpoint
+    that carries an ML history raises ValueError without ``ml_model``.
+    ``mesh`` raises NotImplementedError, as the server does."""
     from .server import StreamServer
 
     path = _resolve_dir(path, "server_meta.json")
@@ -256,6 +267,11 @@ def restore_server(path: str, ml_model=None, ml_params=None, mesh=None, device="
         meta = json.load(f)
     vqt_params = _vqt_params_from_dict(meta["vqt_params"])
     analysis_params = _analysis_params_from_dict(meta["analysis_params"])
+    if meta.get("has_ml_state") and ml_model is None:
+        raise ValueError(
+            "checkpoint carries an ML history; pass ml_model (and its ml_params) "
+            "to restore_server to continue identical serving"
+        )
 
     server = StreamServer(
         meta["n_streams"],
@@ -273,6 +289,7 @@ def restore_server(path: str, ml_model=None, ml_params=None, mesh=None, device="
         fetch=meta.get("fetch", "full"),
         ml_model=ml_model,
         ml_params=ml_params,
+        ml_t_window=meta.get("ml_t_window"),
         mesh=mesh,
         device=device,
     )
@@ -285,6 +302,9 @@ def restore_server(path: str, ml_model=None, ml_params=None, mesh=None, device="
         server.rings.import_state(rings["audio"], rings["heads"], rings["gains"])
     with np.load(os.path.join(path, "server_analysis_state.npz")) as z:
         server.analysis_state = _analysis_state(z, server.device)
+    if meta.get("has_ml_state") and server.ml_state is not None:
+        with np.load(os.path.join(path, "server_ml_state.npz")) as z:
+            server.ml_state = MlState(history=tensor_from_numpy(z["history"], server.device))
     if server.with_viewer:
         with np.load(os.path.join(path, "server_balls_state.npz")) as z:
             server.balls_state = ball_state_from_numpy(z, server.device)

@@ -26,14 +26,17 @@ kernel rounds its f32 frames to bf16 in registers (its plain version rounds
 the same way), and rounding commutes with the roll and the select, so the
 numbers are the same at twice the bytes over the link.
 
-The output stages run after the analysis, as in the pipeline
-(models/pipeline.py::derived_stages): ``with_led`` adds the LED color block,
-``with_viewer`` the display-derived outputs with their ball-fade carry, which
-the server carries beside the analysis carries and the window under the same
-race rules. ``fetch="led"`` returns only the LED block and the two
-per-stream scalars. Entry points run on the card unless given
-``device="cpu"``. The ML stage and ``mesh`` are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+The stages after the analysis run as in the pipeline
+(models/pipeline.py::derived_stages): ``ml_model`` adds the ML inference
+over a rolling history of smoothed spectra, ``with_led`` the LED color
+block, ``with_viewer`` the display-derived outputs with their ball-fade
+carry. The server carries the ML history and the ball carry beside the
+analysis carries and the window under the same race rules, and serves its
+own frozen copy of the model (models/ml_system.py::serving_copy).
+``fetch="led"`` returns only the LED block and the two per-stream scalars
+(the ML history still advances). Entry points run on the card unless given
+``device="cpu"``. ``mesh`` is not ported yet and raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -49,6 +52,8 @@ from ..core.config import AnalysisParameters, VqtParameters, VqtRange
 from ..core.device import resolve_device
 from ..kernel.builder import get_kernel
 from ..models.analysis import AnalysisOutputs, analysis_step_batch, dt_batch, init_state_batch
+from ..models.ml_system import init_ml_state_batch, serving_copy
+from ..models.pitch_mlp import DEFAULT_T
 from ..models.pipeline import ViewerOutputs, build_rebuilt_arrays, derived_stages, reset_state_row
 from ..models.viewer import BallState
 from ..ops.vqt import make_vqt_arrays, vqt_db_auto
@@ -65,12 +70,12 @@ def _not_ported(option: str, item: str) -> NotImplementedError:
 
 @dataclass
 class ServeOutputs:
-    """Per-hop outputs when an output stage (LED / viewer) is enabled on the
-    server; mirrors models.pipeline.PipelineOutputs minus the device-ring
-    diagnostics (gains come from the native ingest)."""
+    """Per-hop outputs when a stage after the analysis (ML / LED / viewer)
+    is enabled on the server; mirrors models.pipeline.PipelineOutputs minus
+    the device-ring diagnostics (gains come from the native ingest)."""
 
     analysis: AnalysisOutputs
-    ml_midi: torch.Tensor | None = None  # the ML stage's; None until it is ported
+    ml_midi: torch.Tensor | None = None  # (B, 128) MIDI strengths when ml_model is set
     led: torch.Tensor | None = None  # (B, n_buckets, 3) u8 LED colors when with_led
     viewer: ViewerOutputs | None = None  # models.pipeline.ViewerOutputs when with_viewer
 
@@ -91,15 +96,17 @@ class _Plan:
     server's lock: the VQT arrays and path, the analysis parameters and bin
     layout, the window length the VQT reads (the fused kernel reads its
     ``tail``, 8192 samples at default parameters; the time path the whole
-    ``n_fft``) and the output stages. The carried state is the pair
-    (analysis carries, ball carry or None). Every method is functional: no
-    tensor it is given changes."""
+    ``n_fft``) and the output stages (``ml_model`` the server's frozen copy
+    or None). The carried state is the triple (analysis carries, ML history
+    or None, ball carry or None). Every method is functional: no tensor it
+    is given changes."""
 
     arrays: object
     path: str
     analysis_params: AnalysisParameters
     rng: VqtRange
     snap_len: int
+    ml_model: object = None
     with_led: bool = False
     with_viewer: bool = False
     fetch: str = "full"
@@ -109,23 +116,24 @@ class _Plan:
         output stages. Returns (new state, packed outputs): the bare
         AnalysisOutputs without stages, else ServeOutputs, or CompactOutputs
         for fetch="led"."""
-        analysis, balls = state
+        analysis, ml, balls = state
         x_vqt = vqt_db_auto(self.arrays, x, path=self.path)
         dt_b = dt_batch(dt, x_vqt.shape[0], x_vqt.device)
         new_analysis, outputs = analysis_step_batch(self.analysis_params, self.rng, analysis, x_vqt, dt_b)
-        _, _, led, new_balls, viewer = derived_stages(
+        new_ml, ml_midi, led, new_balls, viewer = derived_stages(
             self.rng, outputs, dt_b,
+            ml_model=self.ml_model, ml_state=ml,
             with_led=self.with_led, balls_state=balls, with_viewer=self.with_viewer,
         )
         if self.fetch == "led":
             packed = CompactOutputs(
                 led=led, scene_calmness=outputs.scene_calmness, tuning_inaccuracy=outputs.tuning_inaccuracy
             )
-        elif self.with_led or self.with_viewer:
-            packed = ServeOutputs(analysis=outputs, led=led, viewer=viewer)
+        elif self.ml_model is not None or self.with_led or self.with_viewer:
+            packed = ServeOutputs(analysis=outputs, ml_midi=ml_midi, led=led, viewer=viewer)
         else:
             packed = outputs  # the bare analysis outputs
-        return (new_analysis, new_balls), packed
+        return (new_analysis, new_ml, new_balls), packed
 
     def roll_window(self, window: torch.Tensor, chunk: torch.Tensor, advanced: torch.Tensor) -> torch.Tensor:
         """Rolls the window by one hop; streams whose producer underran keep
@@ -267,6 +275,10 @@ class StreamServer:
         * ``"snapshot"``: re-send the trailing window every hop.
 
         Output stages (the ones models.pipeline runs after its analysis):
+        ``ml_model`` (a PitchMLP) with ``ml_params`` (a state_dict; None: the
+        module's own weights) adds the ML inference over a history of
+        ``ml_t_window`` smoothed spectra (default DEFAULT_T, the training
+        window); the server serves its own frozen copy, ``self.ml_model``.
         ``with_led`` adds the per-stream LED color block, ``with_viewer``
         every display-derived output (pitch balls with their fade carry,
         chroma, bloom, spectrogram row, bass spiral, calmness histogram).
@@ -275,17 +287,14 @@ class StreamServer:
         device and the (B,) AGC gains as a NumPy array. ``outputs`` are the
         bare ``AnalysisOutputs`` without output stages, ``ServeOutputs``
         with one, and ``CompactOutputs`` (the LED block and two scalars a
-        stream) for ``fetch="led"``, which implies ``with_led``. The JAX
-        server's ML stage (``ml_model``/``ml_params``/``ml_t_window``) and
-        ``mesh`` raise NotImplementedError. Runs on the card unless
+        stream) for ``fetch="led"``, which implies ``with_led``. ``mesh``
+        raises NotImplementedError. Runs on the card unless
         ``device="cpu"``; raises if the native ingest library cannot be
         built or loaded."""
         if ingest not in ("delta", "snapshot"):
             raise ValueError(f"ingest must be 'delta' or 'snapshot', got {ingest!r}")
         if fetch not in ("full", "led"):
             raise ValueError(f"fetch must be 'full' or 'led', got {fetch!r}")
-        if ml_model is not None or ml_params is not None or ml_t_window is not None:
-            raise _not_ported("ml_model=", "5 (ML)")
         if mesh is not None:
             raise _not_ported("mesh=", "11 (multi-GPU / multi-host)")
         if fetch == "led":
@@ -312,8 +321,11 @@ class StreamServer:
         self.kernel = get_kernel(self.vqt_params)
         self.arrays = make_vqt_arrays(self.kernel, path=path, fast=fast, device=self.device)
         self.n_streams = n_streams
+        self.ml_model = serving_copy(ml_model, ml_params, self.device) if ml_model is not None else None
+        self._ml_t = DEFAULT_T if ml_model is not None and ml_t_window is None else ml_t_window
         self.with_led, self.with_viewer, self.fetch = with_led, with_viewer, fetch
         self.analysis_state = init_state_batch(n_streams, self.vqt_params.n_buckets, device=self.device)
+        self.ml_state = self._init_ml(n_streams)
         self.balls_state = self._init_balls(n_streams)
         self._stage = _HostStage(self.device)
         self._last_step = None
@@ -338,6 +350,11 @@ class StreamServer:
         self._resampler_lock = threading.Lock()
         self._refresh_dispatch()
 
+    def _init_ml(self, n: int):
+        if self.ml_model is None:
+            return None
+        return init_ml_state_batch(n, self._ml_t, self.vqt_params.n_buckets, device=self.device)
+
     def _init_balls(self, n: int):
         if not self.with_viewer:
             return None
@@ -345,9 +362,13 @@ class StreamServer:
 
     def _fresh_rows(self):
         """One freshly initialized (B=1) row of the carried state (analysis,
-        balls). Call with self._state_lock held (reads the live
+        ml, balls). Call with self._state_lock held (reads the live
         n_buckets)."""
-        return init_state_batch(1, self.vqt_params.n_buckets, device=self.device), self._init_balls(1)
+        return (
+            init_state_batch(1, self.vqt_params.n_buckets, device=self.device),
+            self._init_ml(1),
+            self._init_balls(1),
+        )
 
     def _refresh_dispatch(self) -> None:
         """Re-reads the arrays and parameters into the plan the next hop
@@ -360,6 +381,7 @@ class StreamServer:
             analysis_params=self.analysis_params,
             rng=self.vqt_params.range,
             snap_len=int(getattr(self.arrays, "tail", self.vqt_params.n_fft)),
+            ml_model=self.ml_model,
             with_led=self.with_led,
             with_viewer=self.with_viewer,
             fetch=self.fetch,
@@ -414,7 +436,7 @@ class StreamServer:
     def reset_stream(self, stream: int) -> None:
         """Recycles one slot for a new client stream: clears the native ring
         (audio, write position, AGC gain), the slot's resampler state, its
-        analysis and ball carries and its row of the window, so the new stream starts
+        analysis carries, ML history and ball carry and its row of the window, so the new stream starts
         from what a fresh server would give it. Call after the slot's
         previous producer has stopped; safe against a concurrent step()."""
         self.rings.reset(stream)
@@ -425,8 +447,8 @@ class StreamServer:
             # the fresh row is built inside the lock: a layout-changing
             # rebuild() between an unlocked read and the write would make it
             # the wrong shape
-            self.analysis_state, self.balls_state = reset_state_row(
-                (self.analysis_state, self.balls_state), self._fresh_rows(), stream
+            self.analysis_state, self.ml_state, self.balls_state = reset_state_row(
+                (self.analysis_state, self.ml_state, self.balls_state), self._fresh_rows(), stream
             )
             if self._window is not None:
                 # delta mode never re-sends the old client's audio
@@ -444,14 +466,15 @@ class StreamServer:
     def rebuild(self, vqt_params: VqtParameters) -> None:
         """Swaps in a new VQT parameter set while serving (the reference's
         debounced rebuild, common.rs:1105-1165). The ring bank and its audio
-        are kept; the analysis and ball carries persist when the bin layout
-        is unchanged and are re-initialized when it changes; the window is
-        re-materialized from the ring on the next step. Raises ValueError
-        for sets this server cannot host (another sample rate, n_fft beyond
-        the ring capacity)."""
+        are kept; the analysis, ML and ball carries persist when the bin
+        layout is unchanged and are re-initialized when it changes; the
+        window is re-materialized from the ring on the next step. Raises
+        ValueError for sets this server cannot host (another sample rate,
+        n_fft beyond the ring capacity, a bin-layout change with an ML
+        model attached)."""
         kernel, arrays, layout_changed = build_rebuilt_arrays(
             self.vqt_params, vqt_params, max_n_fft=self.rings.capacity,
-            path=self.path, fast=self.fast, device=self.device,
+            path=self.path, fast=self.fast, ml_attached=self.ml_model is not None, device=self.device,
         )
         with self._state_lock:
             self.kernel = kernel
@@ -459,6 +482,7 @@ class StreamServer:
             self.vqt_params = vqt_params
             if layout_changed:
                 self.analysis_state = init_state_batch(self.n_streams, vqt_params.n_buckets, device=self.device)
+                self.ml_state = self._init_ml(self.n_streams)
                 self.balls_state = self._init_balls(self.n_streams)
             self._refresh_dispatch()
             self._window = None
@@ -489,7 +513,9 @@ class StreamServer:
         clears the resets-in-flight set (a reset added after this point
         landed mid-flight and is re-applied by _writeback)."""
         with self._state_lock:
-            captured = (self._plan, self.vqt_params, (self.analysis_state, self.balls_state), self._window)
+            captured = (
+                self._plan, self.vqt_params, (self.analysis_state, self.ml_state, self.balls_state), self._window
+            )
             self._resets_in_flight.clear()
         return captured
 
@@ -514,7 +540,7 @@ class StreamServer:
                 new_state = reset_state_row(new_state, self._fresh_rows(), s)
                 if new_window is not None:
                     new_window = _zero_row(new_window, s)
-            self.analysis_state, self.balls_state = new_state
+            self.analysis_state, self.ml_state, self.balls_state = new_state
             if new_window is not None:
                 self._window = new_window
             return True

@@ -37,6 +37,13 @@ def hops(n, seed):
     return [a[:, i * HOP : (i + 1) * HOP] for i in range(n)]
 
 
+# the JAX package's keys of server_meta.json
+SERVER_META_KEYS = {
+    "vqt_params", "analysis_params", "n_streams", "capacity", "path", "fast", "ingest", "hop",
+    "max_lag", "max_catchup", "with_led", "with_viewer", "fetch", "ml_t_window", "has_ml_state",
+}
+
+
 def warmed_server(path="pallas", ingest="delta"):
     srv = StreamServer(B, to_port(SMALL_PARAMS), buffer_seconds=1.0, path=path, ingest=ingest, device="cpu")
     srv.push_batch(streams(B, int(SMALL_PARAMS.sr * 0.6), SMALL_PARAMS.sr, seed=1))
@@ -82,10 +89,7 @@ def test_server_meta_keys(tmp_path):
     srv.close()
     with open(tmp_path / "ckpt" / "server_meta.json") as f:
         meta = json.load(f)
-    assert set(meta) == {
-        "vqt_params", "analysis_params", "n_streams", "capacity", "path", "fast", "ingest", "hop",
-        "max_lag", "max_catchup", "with_led", "with_viewer", "fetch", "ml_t_window", "has_ml_state",
-    }
+    assert set(meta) == SERVER_META_KEYS
     with np.load(tmp_path / "ckpt" / "server_rings.npz") as z:
         assert set(z.files) == {"audio", "heads", "gains"}
 
@@ -187,3 +191,76 @@ def test_jax_server_carried_into_port(fast):
     finally:
         jax_srv.close()
         srv.close()
+
+
+def ml_model():
+    from pitchvis_tpu_torch.models.pitch_mlp import PitchMLP
+
+    return PitchMLP(input_bins=3 * SMALL_PARAMS.n_buckets, mlp_size=32, mlp_layers=2, device="cpu")
+
+
+def test_server_checkpoint_with_ml_history(tmp_path):
+    """A server with the ML stage: its history goes into
+    server_ml_state.npz and the meta keys stay the JAX package's, with
+    has_ml_state and ml_t_window set; restore_server without a model raises
+    ValueError naming ml_model (as the JAX package's does), with it the
+    restored server's history and next hops equal the uninterrupted
+    server's (torch.equal)."""
+    model = ml_model()
+    kw = dict(buffer_seconds=1.0, path="pallas", ml_model=model, ml_t_window=3, device="cpu")
+    srv = StreamServer(B, to_port(SMALL_PARAMS), **kw)
+    srv.push_batch(streams(B, int(SMALL_PARAMS.sr * 0.6), SMALL_PARAMS.sr, seed=1))
+    srv.step(dt=DT)
+    for c in hops(3, seed=2):
+        srv.push_batch(c)
+        srv.step(dt=DT)
+    path = str(tmp_path / "ckpt")
+    save_server_state(path, srv)
+    later = hops(3, seed=4)
+    want = []
+    for c in later:
+        srv.push_batch(c)
+        want.append(srv.step(dt=DT)[0])
+    srv.close()
+    with open(os.path.join(path, "server_meta.json")) as f:
+        meta = json.load(f)
+    assert meta["has_ml_state"] is True and meta["ml_t_window"] == 3
+    assert set(meta) == SERVER_META_KEYS
+    with np.load(os.path.join(path, "server_ml_state.npz")) as z:
+        assert z["history"].shape == (B, 3, SMALL_PARAMS.n_buckets) and np.abs(z["history"]).max() > 0
+    with pytest.raises(ValueError, match="ml_model"):
+        restore_server(path, device="cpu")
+    restored = restore_server(path, ml_model=model, device="cpu")
+    try:
+        assert restored._ml_t == 3 and restored.ml_model is not model
+        for c, w in zip(later, want):
+            restored.push_batch(c)
+            got, _ = restored.step(dt=DT)
+            assert torch.equal(got.ml_midi, w.ml_midi)
+            assert torch.equal(got.analysis.x_vqt_smoothed, w.analysis.x_vqt_smoothed)
+    finally:
+        restored.close()
+
+
+def test_pipeline_checkpoint_with_ml_history(tmp_path):
+    """save_pipeline_state / load_pipeline_state carry the ML history
+    (ml_history in the NumPy file, ml_t_window in the meta, as the JAX
+    package's key): a pipeline resumed from it gives the same next hop."""
+    params = to_port(SMALL_PARAMS)
+    model = ml_model()
+    pipe = StreamingPipeline(B, params, path="pallas", ml_model=model, ml_t_window=3, device="cpu")
+    chunks = hops(4, seed=5)
+    for c in chunks[:3]:
+        pipe.step(c, DT)
+    save_pipeline_state(str(tmp_path / "p"), pipe.state, params)
+    with open(tmp_path / "p" / "pipeline_meta.json") as f:
+        assert json.load(f)["ml_t_window"] == 3
+    state, _ = load_pipeline_state(str(tmp_path / "p"), device="cpu")
+    assert torch.equal(state.ml.history, pipe.state.ml.history)
+    resumed = StreamingPipeline(B, params, path="pallas", ml_model=model, ml_t_window=3, device="cpu")
+    resumed.state = state
+    assert torch.equal(resumed.step(chunks[3], DT).ml_midi, pipe.step(chunks[3], DT).ml_midi)
+    save_pipeline_state(str(tmp_path / "bare"), StreamingPipeline(B, params, device="cpu").state, params)
+    with open(tmp_path / "bare" / "pipeline_meta.json") as f:
+        assert json.load(f)["ml_t_window"] is None
+    assert load_pipeline_state(str(tmp_path / "bare"), device="cpu")[0].ml is None

@@ -9,8 +9,11 @@ import os
 import pytest
 import torch
 
+import numpy as np
 import pitchvis_tpu_torch as pt
+from pitchvis_tpu_torch.models.pitch_mlp import PitchMLP
 from pitchvis_tpu_torch.ops import agc, peaks_pallas, vqt_pallas
+from pitchvis_tpu_torch.train.train import TrainConfig, train
 
 from conftest import SMALL_PARAMS
 from torch_port_helpers import to_port
@@ -41,6 +44,8 @@ def test_port_files_found():
     files = _port_files()
     assert len(files) > 15
     assert any(f.endswith("chip_smoke.py") for f in files)
+    for module in ("models/pitch_mlp.py", "models/ml_system.py", "train/train.py"):
+        assert os.path.join(ROOT, "pitchvis_tpu_torch", module) in files, module
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
@@ -49,12 +54,16 @@ def test_no_jax_imports(path):
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
-@pytest.mark.parametrize("entry", ["pipeline", "vqt", "arrays", "server"])
+@pytest.mark.parametrize("entry", ["pipeline", "vqt", "arrays", "server", "train", "model"])
 def test_entry_points_raise_without_cuda(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     params = to_port(SMALL_PARAMS)
     with pytest.raises(RuntimeError, match="CUDA"):
-        if entry == "pipeline":
+        if entry == "train":
+            train(np.zeros((8, 8 + 128), np.float32), TrainConfig(n_buckets=8, t_window=2, mlp_size=8, epochs=1))
+        elif entry == "model":
+            PitchMLP(input_bins=40, mlp_size=8, mlp_layers=1)
+        elif entry == "pipeline":
             pt.StreamingPipeline(2, params, path="pallas")
         elif entry == "vqt":
             pt.Vqt(params, path="pallas")

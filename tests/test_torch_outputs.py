@@ -45,6 +45,8 @@ from pitchvis_tpu_torch.convert import (
 )
 from pitchvis_tpu_torch.io.led import frame_bytes
 from pitchvis_tpu_torch.models.analysis import AnalysisOutputs
+from pitchvis_tpu_torch.models.ml_system import init_ml_state_batch
+from pitchvis_tpu_torch.models.pitch_mlp import PitchMLP
 from pitchvis_tpu_torch.models.pipeline import derived_stages
 from pitchvis_tpu_torch.models.viewer import BALL_LEAVES, BallState
 from pitchvis_tpu_torch.runtime.checkpoint import (
@@ -147,10 +149,26 @@ def n_segments(rng_cfg):
 
 @pytest.mark.parametrize("arg", ["ml_model", "ml_params", "ml_state"])
 def test_derived_stages_ml_raises(arg):
-    a = seeded_analysis_outputs(3, SMALL_PARAMS.n_buckets, 0)
+    """The ML arguments are ported (the name is kept from when they raised):
+    as in the JAX package, ml_model with its history runs the stage (its
+    outputs against JAX's are tests/test_torch_ml.py's), while ml_params or
+    ml_state without a model pass through: no ML outputs, the state
+    returned as it was given."""
+    n = SMALL_PARAMS.n_buckets
+    a = seeded_analysis_outputs(3, n, 0)
     outputs = AnalysisOutputs(**{k: torch.from_numpy(v.copy()) for k, v in a.items()})
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        derived_stages(to_port(SMALL_PARAMS.range), outputs, torch.full((3,), DT), **{arg: object()})
+    model = PitchMLP(input_bins=2 * n, mlp_size=16, mlp_layers=1, device="cpu")
+    state = init_ml_state_batch(3, 2, n, device="cpu")
+    kw = {"ml_model": dict(ml_model=model, ml_state=state), "ml_params": dict(ml_params=model.state_dict()),
+          "ml_state": dict(ml_state=state)}[arg]
+    new_ml, ml_midi, led, balls, viewer = derived_stages(
+        to_port(SMALL_PARAMS.range), outputs, torch.full((3,), DT), **kw)
+    assert (led, balls, viewer) == (None, None, None)
+    if arg == "ml_model":
+        assert tuple(ml_midi.shape) == (3, 128) and bool(((ml_midi >= 0) & (ml_midi <= 1)).all())
+        assert torch.equal(new_ml.history[:, -1], outputs.x_vqt_smoothed)
+    else:
+        assert ml_midi is None and new_ml is kw.get("ml_state")
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,10 @@ from pitchvis_tpu_torch.ops.vqt_pallas import PallasVqtArrays
 from pitchvis_tpu_torch.stream.ring import RingState
 from pitchvis_tpu_torch.convert import ANALYSIS_LEAVES, pipeline_state_from_numpy, pipeline_state_to_numpy
 from pitchvis_tpu_torch.models.analysis import analysis_step_batch
+from pitchvis_tpu_torch.models.ml_system import MlState, init_ml_state_batch
+from pitchvis_tpu_torch.models.pitch_mlp import PitchMLP
 from pitchvis_tpu_torch.models.viewer import BallState, CalmnessGraphState, SpectrogramState
+from pitchvis_tpu_torch.train.train import TrainConfig, make_model
 
 from conftest import SMALL_PARAMS
 from torch_port_helpers import default_params, streams, to_port
@@ -212,6 +215,15 @@ CONSTRUCTORS = {
     "SpectrogramState.init": lambda **kw: SpectrogramState.init(2, 3, 8, **kw),
     "convert.ball_state_from_numpy": lambda **kw: convert.ball_state_from_numpy(
         convert.ball_state_to_numpy(BallState.init(2, 8, device="cpu")), **kw),
+    "init_pipeline_state(ml_t_window=3)": lambda **kw: init_pipeline_state(
+        2, to_port(SMALL_PARAMS), ml_t_window=3, **kw),
+    "MlState.init": lambda **kw: MlState.init(3, 8, **kw),
+    "init_ml_state_batch": lambda **kw: init_ml_state_batch(2, 3, 8, **kw),
+    "PitchMLP": lambda **kw: list(PitchMLP(input_bins=40, mlp_size=8, mlp_layers=1, **kw).parameters()),
+    "train.make_model": lambda **kw: list(make_model(TrainConfig(n_buckets=8, mlp_size=8), **kw).parameters()),
+    "convert.pitch_mlp_params_from_numpy": lambda **kw: list(convert.pitch_mlp_params_from_numpy(
+        convert.pitch_mlp_params_to_numpy(
+            PitchMLP(input_bins=40, mlp_size=8, mlp_layers=1, device="cpu").state_dict()), **kw).values()),
 }
 
 

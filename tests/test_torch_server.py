@@ -19,6 +19,7 @@ from pitchvis_tpu.ops.resample import _design_prototype as jax_prototype
 from pitchvis_tpu.runtime.server import StreamServer as JaxServer
 from pitchvis_tpu_torch import StreamServer
 from pitchvis_tpu_torch.core.config import AnalysisParameters
+from pitchvis_tpu_torch.models.pitch_mlp import PitchMLP
 from pitchvis_tpu_torch.ops.resample import _design_prototype, make_spec
 from pitchvis_tpu_torch.runtime import native
 
@@ -437,21 +438,29 @@ def test_retune_analysis_keeps_carries():
 
 
 @pytest.mark.parametrize("option", [
-    dict(ml_model=object()), dict(with_led=True), dict(with_viewer=True), dict(fetch="led"), dict(mesh=object()),
+    dict(ml_model="PitchMLP"), dict(with_led=True), dict(with_viewer=True), dict(fetch="led"), dict(mesh=object()),
 ])
 def test_unported_options_raise(option):
-    """ml_model= and mesh= are not ported and raise, naming their ROADMAP
-    item; the output stages (with_led, with_viewer, fetch="led") are ported
-    and serve a hop with their outputs (tests/test_torch_outputs.py holds
-    them against the JAX server)."""
-    if "ml_model" in option or "mesh" in option:
+    """mesh= is not ported and raises, naming its ROADMAP item; the ML stage
+    (ml_model=) and the output stages (with_led, with_viewer, fetch="led")
+    are ported and serve a hop with their outputs (tests/test_torch_ml.py
+    and tests/test_torch_outputs.py hold them against the JAX server)."""
+    if "mesh" in option:
         with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
             StreamServer(2, to_port(SMALL_PARAMS), device="cpu", **option)
         return
+    if "ml_model" in option:
+        option = dict(ml_model=PitchMLP(input_bins=5 * SMALL_PARAMS.n_buckets, mlp_size=16, mlp_layers=1,
+                                        device="cpu"))
     srv = StreamServer(2, to_port(SMALL_PARAMS), buffer_seconds=1.0, device="cpu", **option)
     try:
         srv.push_batch(streams(2, int(SMALL_PARAMS.sr * 0.5), SMALL_PARAMS.sr, seed=4))
         out, _ = srv.step(dt=DT)
+        if "ml_model" in option:
+            # the default history window is the training window, T=5
+            assert tuple(out.ml_midi.shape) == (2, 128) and out.led is None
+            assert tuple(srv.ml_state.history.shape) == (2, 5, SMALL_PARAMS.n_buckets)
+            return
         assert (out.led is not None) == (option != dict(with_viewer=True))
         if "with_viewer" in option:
             assert out.viewer.balls.position.shape == (2, SMALL_PARAMS.n_buckets, 3)
