@@ -6,7 +6,7 @@
 Run from the root of the checkout on a machine with a CUDA card and the CUDA
 toolkit (nvcc). Phases, each of which fails the run on any error:
 
-1. builds the CUDA sources of pitchvis_tpu_torch/csrc/ (the three kernels
+1. builds the CUDA sources of pitchvis_tpu_torch/csrc/ (the four kernels
    and an empty kernel for timing a launch; one nvcc each, in parallel) and
    prints the build seconds and the card's name and power limit;
 2. holds each kernel against its plain PyTorch version on the card at the
@@ -95,19 +95,40 @@ toolkit (nvcc). Phases, each of which fails the run on any error:
    against the CPU on one hop's history (outputs atol 1e-5, logits 1e-4 of
    the largest); a StreamServer with the ML stage for 16 hops; and
    step_multi(4) against 4 step()s with it at B=256 (torch.equal).
+8. runs the rasterizer: the composite kernel (csrc/composite.cu) against
+   composite_patches_plain on the card, torch.equal, at the full size (B=64,
+   K=64, P=96, 640x360, all patches overlapping), at B=1 and K=1, on the
+   golden's 160x96 raster, with origins at both edges, a stride-0 colour, a
+   base off 16-byte alignment, K=0 and the empty batch, with its time, its
+   plain version's and its time on the card alone; it fails if the
+   scene has no pitch-name layer (the atlas missing); then 12 hops of
+   StreamingPipeline(2048, path="pallas", fast=True, with_viewer=True), each
+   followed by render_streams of streams 0-63 at RenderConfig() (640x360,
+   K=64, P=96), timed by the host clock with a synchronize (frames/s, ms a
+   batch), one batch's launches, device and enqueue ms, its split by stage
+   (CUDA events) and peak memory, and the composite on the path's own
+   patches against its plain version; the same on a synthetic scene with K
+   full in every stream; tests/golden/render_golden.npz replayed on the card
+   (plain and overlay within one 8-bit step); render_batch of 4 streams on
+   the card against the CPU, plain and with the debug overlay (within one
+   step), and under a caller's allow_tf32=True (torch.equal to the
+   default); one render_streams and one debug render under
+   set_sync_debug_mode("error").
 
 It prints a JSON line of the VQT's times by part, one of the analysis step's
 launches and times, one of the output stages' numbers, one of the ML phase's
-(``ml_stage``), one of per-kernel numbers (``launches`` summed over the
-pipeline's, the server's, the output-stage pipeline's and the ML pipeline's
-and server's measured hops, ``launches_by_path`` each), then the nvidia-smi
-line, and as its last line ``{"ok": true, "device": {...}}``.
+(``ml_stage``), one of the rasterizer's (``render``), one of per-kernel
+numbers (``launches`` summed over the pipeline's, the server's, the
+output-stage pipeline's, the ML pipeline's and server's and the render
+path's measured hops and batches, ``launches_by_path`` each), then the
+nvidia-smi line, and as its last line ``{"ok": true, "device": {...}}``.
 Without CUDA it exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import ctypes
 import json
 import os
@@ -131,6 +152,9 @@ LOOP_S = 2.0
 STAGE_HOPS = 16  # phase 6: hops of the pipeline with the output stages
 ML_HOPS = 16  # phase 7: hops of the pipeline and of the server with the ML stage
 TRAIN_STEPS = 20  # phase 7: full-width train steps
+RENDER_STREAMS = 64  # phase 8: watched streams a batch (bench_render's default)
+RENDER_BATCHES = 12  # phase 8: timed batches of the render path
+CARD_CPU_STREAMS = 4  # phase 8: streams rendered on the card and on the CPU
 
 # phase 6 tolerances. Card against CPU on the same inputs, those that the CPU
 # tests state against the JAX package (tests/test_torch_led.py,
@@ -1255,6 +1279,365 @@ def ml_phase(torch, counts, reset_counts, gen) -> tuple[dict, dict]:
     return path_counts, numbers
 
 
+def composite_cases(torch, gen) -> dict:
+    """Phase 8 (a): the composite kernel against composite_patches_plain on
+    the card, torch.equal, in every case the render can give it; its time,
+    the plain version's and the kernel's time on the card alone at the main
+    path's shapes (64 streams of 640x360, 64 patches of 96 x 96)."""
+    from pitchvis_tpu_torch.ops import composite as comp
+
+    dev = "cuda"
+
+    def inputs(b, k, p, hp, wp, origins, offset=0):
+        def rand(*shape):
+            # offset > 0: a view whose base lies `offset` floats into its buffer
+            flat = torch.rand(offset + int(np.prod(shape)), generator=gen, device=dev)
+            return flat[offset:].view(*shape)
+
+        img, rgb, a = rand(b, hp, wp, 3), rand(b, k, p, p, 3), rand(b, k, p, p)
+        if origins == "overlapping":  # every patch over the raster's middle, all visible
+            si = (wp - p) // 2 + torch.randint(-p // 3, p // 3 + 1, (b, k), generator=gen, device=dev)
+            sj = (hp - p) // 2 + torch.randint(-p // 3, p // 3 + 1, (b, k), generator=gen, device=dev)
+        else:  # both edges
+            si = torch.randint(0, 2, (b, k), generator=gen, device=dev) * (wp - p)
+            sj = torch.randint(0, 2, (b, k), generator=gen, device=dev) * (hp - p)
+        return img, rgb, a, si.to(torch.int32), sj.to(torch.int32)
+
+    cases = {
+        "full size: B=64, K=64, P=96, 640x360, all patches visible and overlapping":
+            inputs(64, 64, 96, 360, 640, "overlapping"),
+        "B=1, K=1": inputs(1, 1, 96, 360, 640, "overlapping"),
+        "the golden's 160x96 padded raster, K=16, P=48": inputs(3, 16, 48, 96, 160, "overlapping"),
+        "origins at both edges": inputs(5, 24, 40, 90, 130, "edges"),
+        "base off 16-byte alignment": inputs(4, 16, 32, 72, 100, "overlapping", offset=1),
+        "no patches (K=0)": inputs(2, 0, 8, 24, 40, "edges"),
+        "the empty batch": inputs(0, 8, 16, 24, 40, "edges"),
+    }
+    img, rgb, a, si, sj = inputs(6, 16, 11, 96, 160, "overlapping")
+    cases["the disks' stride-0 colours"] = (img, rgb[:, :, :1, :1].expand(-1, -1, 11, 11, -1), a, si, sj)
+    for label, (img, rgb, a, si, sj) in cases.items():
+        before = comp.launches
+        got = comp.composite_patches(img, rgb, a, si, sj)
+        want = comp.composite_patches_plain(img, rgb, a, si, sj)
+        torch.cuda.synchronize()
+        check(comp.launches == before + (1 if img.shape[0] else 0), f"composite, {label}: the kernel did not launch")
+        check(got.shape == want.shape and torch.equal(got, want),
+              f"composite kernel differs from its plain version: {label}")
+    print(f"composite kernel equal (torch.equal) to composite_patches_plain on the card in {len(cases)} cases: "
+          + "; ".join(cases))
+
+    img, rgb, a, si, sj = cases["full size: B=64, K=64, P=96, 640x360, all patches visible and overlapping"]
+    b, k, p = a.shape[0], a.shape[1], a.shape[2]
+    ms = time_ms(torch, lambda: comp.composite_patches(img, rgb, a, si, sj))
+    plain_ms = time_ms(torch, lambda: comp.composite_patches_plain(img, rgb, a, si, sj), reps=3, inner=2)
+    _, card_ms = device_trace(torch, lambda: comp.composite_patches(img, rgb, a, si, sj), kernel="composite", inner=20)
+    # read the raster, each patch's colour and alpha and the origins once,
+    # write the raster once; 10 operations a patch pixel (1 - a, then two
+    # products and a sum a channel) at the FFMA rate
+    bytes_moved = 2 * img.numel() * 4 + (rgb.numel() + a.numel()) * 4 + 2 * b * k * 4
+    b_ms, b_by = bound_ms(bytes_moved, 10 * b * k * p * p, F32_FLOPS)
+    print(f"composite at B={b}, K={k}, P={p}, 360x640: {ms:.4f} ms a call, {card_ms:.4f} on the card alone, plain "
+          f"{plain_ms:.4f}; bound {b_ms:.4f} ms ({b_by}: {bytes_moved / 1e6:.1f} MB); no single PyTorch call "
+          f"computes the same function (library none)")
+    return dict(cases=list(cases), max_abs_err=0.0, ms=ms, card_ms=card_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, bytes=bytes_moved)
+
+
+def render_phase(torch, params, counts, reset_counts, gen) -> tuple[dict, dict, dict]:
+    """Phase 8: the composite kernel against its plain version; the display
+    path, StreamingPipeline(2048, path="pallas", fast=True, with_viewer=True)
+    hops each followed by render_streams of streams 0-63 at RenderConfig()
+    (640x360, K=64, P=96, bloom, net, bass and names): frames/s, ms a batch,
+    the split by stage, launches, device and enqueue ms, peak memory; the same
+    on a synthetic scene with every stream's K full; the render golden on the
+    card; card against CPU on 4 streams with and without the debug overlay,
+    and under a caller's TF32 setting; one render under
+    set_sync_debug_mode("error"). Returns (the path's pipeline launch counts,
+    the composite's kernel entry, the phase's numbers)."""
+    import dataclasses
+
+    from pitchvis_tpu_torch import RenderConfig, StreamingPipeline, render_batch, render_frame, render_streams
+    from pitchvis_tpu_torch.io.golden import render_scene_inputs
+    from pitchvis_tpu_torch.models import render as render_mod
+    from pitchvis_tpu_torch.models.viewer import BallOutputs, CalmnessGraphState, SpectrogramState, bin_to_spiral
+    from pitchvis_tpu_torch.ops import composite as comp
+
+    numbers = {}
+    kernel = composite_cases(torch, gen)
+    torch.cuda.empty_cache()
+
+    cfg = RenderConfig()
+    rng = params.range
+    n = params.n_buckets
+    sr = params.sr
+    hop = int(sr / 60.0)
+    dt = hop / sr
+    warm = 8  # hops before the timed ones (the last two rendered): the window fills
+    watched = range(RENDER_STREAMS)
+    audio = synthetic_audio(torch, B, (warm + RENDER_BATCHES + 2) * hop, sr, gen)
+
+    def chunk(h):
+        return audio[:, h * hop : (h + 1) * hop]
+
+    def rows(obj, sel):
+        return type(obj)(**{f.name: getattr(obj, f.name)[sel] for f in dataclasses.fields(obj)})
+
+    def frames_ok(frames, n_frames, what):
+        check(frames.dtype == torch.uint8 and tuple(frames.shape) == (n_frames, cfg.height, cfg.width, 3),
+              f"{what}: frames {frames.dtype} {tuple(frames.shape)}")
+        check(float(frames.float().std()) > 5.0, f"{what}: the frames are flat")
+
+    def host_ms(fn, reps=5):
+        """(enqueue ms, wall ms), medians of ``reps`` calls by the host clock."""
+        enqueue, wall = [], []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            enqueue.append((time.perf_counter() - t) * 1e3)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(enqueue)), float(np.median(wall))
+
+    def split(balls, bass, sc, t, reps=3):
+        """ms by stage of one batch (CUDA events, median of ``reps``); a
+        measured side path, not counted."""
+        st = render_mod.make_scene(cfg, rng, "cuda")
+        labels = ("under (background, bass)", "fragment", "composite", "text", "bloom (crop, bloom)",
+                  "tonemap (tonemap, encode)")
+        times = {k: [] for k in labels}
+        for _ in range(reps):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+            ev[0].record()
+            img = render_mod.layers_under(cfg, rng, st, bass, None)
+            ev[1].record()
+            rgb, a, si, sj = render_mod.ball_patches(cfg, balls, t)
+            ev[2].record()
+            img = comp.composite_patches(img, rgb, a, si, sj)
+            ev[3].record()
+            img = render_mod.layers_over(cfg, rng, st, img, None)
+            ev[4].record()
+            img = render_mod.post(cfg, img, sc)
+            ev[5].record()
+            render_mod.encode(cfg, img, None)
+            ev[6].record()
+            torch.cuda.synchronize()
+            for i, key in enumerate(labels):
+                times[key].append(ev[i].elapsed_time(ev[i + 1]))
+        return {k: float(np.median(v)) for k, v in times.items()}
+
+    def measure(label, render_once, balls, bass, sc, t, n_frames):
+        """The batch's launches and device ms (profiler, the fullest of three
+        traces), its enqueue and wall ms, the split and the peak memory."""
+        launches, device_ms = max(device_trace(torch, render_once) for _ in range(3))
+        enqueue, wall = host_ms(render_once)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        render_once()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        stages = split(balls, bass, sc, t)
+        out = dict(launches=launches, device_ms=device_ms, enqueue_ms=enqueue, wall_ms=wall, split_ms=stages,
+                   peak_gib=peak / 2**30, render_peak_gib=(peak - base) / 2**30)
+        print(f"{label}: one batch of {n_frames} frames {launches} device ops, {device_ms:.3f} ms on the card, "
+              f"{enqueue:.3f} ms to enqueue, {wall:.3f} ms to its end; split (CUDA events) {json.dumps(stages)}; "
+              f"peak device memory {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB above what was allocated)")
+        return out
+
+    # (b) the path: each hop of the pipeline, then the watched streams'
+    # frames; a debug display's graph and spectrogram of streams 0-3 follow
+    # the hops (for (d))
+    dbg_rows = slice(0, CARD_CPU_STREAMS)
+    graph = CalmnessGraphState.init(CARD_CPU_STREAMS, device="cuda")
+    spectrogram = SpectrogramState.init(CARD_CPU_STREAMS, 200, n, device="cuda")
+    pipe = StreamingPipeline(B, params, path="pallas", fast=True, with_viewer=True, device="cuda")
+    t_sec = 0.0
+
+    def hop_and_debug(h):
+        nonlocal graph, spectrogram
+        out = pipe.step(chunk(h), dt)
+        graph = graph.push(out.analysis.scene_calmness[dbg_rows])
+        spectrogram = spectrogram.push(out.viewer.spectrogram_row[dbg_rows])
+        return out
+
+    for h in range(warm):
+        out = hop_and_debug(h)
+        if h >= warm - 2:
+            frames = render_streams(cfg, rng, out.viewer, out.analysis.scene_calmness, t_sec, streams=watched)
+    # the atlas is committed beside the package: without it the scene would
+    # render no pitch names, with only a warning
+    check(render_mod.make_scene(cfg, rng, "cuda").text_premul is not None,
+          "the scene has no pitch-name layer (pitchvis_tpu_torch/models/assets/pitch_name_atlas.npz missing)")
+    torch.cuda.synchronize()
+    reset_counts()
+    comp.launches = 0
+    batch_ms = []
+    for h in range(warm, warm + RENDER_BATCHES):
+        out = hop_and_debug(h)
+        t_sec += 1.0 / 60.0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        frames = render_streams(cfg, rng, out.viewer, out.analysis.scene_calmness, t_sec, streams=watched)
+        torch.cuda.synchronize()
+        batch_ms.append((time.perf_counter() - t) * 1e3)
+    path_counts = counts()
+    path_composite = comp.launches
+    want = {"vqt": RENDER_BATCHES, "peaks": 2 * RENDER_BATCHES, "agc": RENDER_BATCHES}
+    check(path_counts == want, f"render path: pipeline launches {path_counts}, expected {want}")
+    check(path_composite == RENDER_BATCHES,
+          f"render path: {path_composite} composite launches for {RENDER_BATCHES} batches")
+    frames_ok(frames, RENDER_STREAMS, "render path")
+    visible = out.viewer.balls.visible[: RENDER_STREAMS].sum(dim=1)
+    check(int((visible > 0).sum()) > RENDER_STREAMS // 2, "render path: most watched streams show no ball")
+    med = float(np.median(batch_ms))
+    print(f"render path: {RENDER_BATCHES} batches of render_streams(RenderConfig(), streams 0-{RENDER_STREAMS - 1}) "
+          f"each after a StreamingPipeline(B={B}, with_viewer) hop: ms a batch median {med:.3f} "
+          f"(min {min(batch_ms):.3f}, "
+          f"max {max(batch_ms):.3f}), {RENDER_STREAMS * 1e3 / med:.1f} frames/s; {float(visible.float().mean()):.1f} "
+          f"visible balls a stream (K={cfg.max_balls}); launches: pipeline {path_counts}, composite {path_composite}")
+    viewer, sc = out.viewer, out.analysis.scene_calmness
+    balls, bass = rows(viewer.balls, slice(0, RENDER_STREAMS)), rows(viewer.bass, slice(0, RENDER_STREAMS))
+    sc64 = sc[:RENDER_STREAMS]
+    path = measure("render path", lambda: render_streams(cfg, rng, viewer, sc, t_sec, streams=watched),
+                   balls, bass, sc64, t_sec, RENDER_STREAMS)
+    # the composite kernel on this path's own patches
+    rgb, a, si, sj = render_mod.ball_patches(cfg, balls, t_sec)
+    img = render_mod.layers_under(cfg, rng, render_mod.make_scene(cfg, rng, "cuda"), bass, None)
+    check(torch.equal(comp.composite_patches(img, rgb, a, si, sj), comp.composite_patches_plain(img, rgb, a, si, sj)),
+          "composite kernel differs from its plain version on the render path's patches")
+    numbers["path"] = dict(batch_ms=med, batch_min_ms=min(batch_ms), batch_max_ms=max(batch_ms),
+                           frames_per_s=RENDER_STREAMS * 1e3 / med, batches=RENDER_BATCHES, streams=RENDER_STREAMS,
+                           visible_balls=float(visible.float().mean()), **path)
+    del rgb, a, si, sj, img
+
+    # the same on a synthetic scene: some 100 visible balls a stream, so
+    # every stream's K is full
+    g = gen
+    shape = (RENDER_STREAMS, n)
+    vis = torch.rand(shape, generator=g, device="cuda") < 100.0 / n
+    centers = torch.arange(n, device="cuda", dtype=torch.float32) + torch.rand(shape, generator=g, device="cuda") - 0.5
+    x, y = bin_to_spiral(rng.buckets_per_octave, centers)
+    z = -12.6 * torch.rand(shape, generator=g, device="cuda")
+    full = BallOutputs(
+        position=torch.stack([x, y, z], dim=-1),
+        rgba=torch.cat([torch.rand((*shape, 3), generator=g, device="cuda"),
+                        0.7 + 0.3 * torch.rand((*shape, 1), generator=g, device="cuda")], dim=-1),
+        scale=0.02 + 0.06 * torch.rand(shape, generator=g, device="cuda"),
+        visible=vis,
+        calmness=torch.rand(shape, generator=g, device="cuda"),
+        pitch_accuracy=0.5 + 0.5 * torch.rand(shape, generator=g, device="cuda"),
+        pitch_deviation=0.8 * torch.rand(shape, generator=g, device="cuda") - 0.4,
+    )
+    check(int(vis.sum(dim=1).min()) >= cfg.max_balls, "synthetic scene: a stream with fewer than K visible balls")
+    full_bass = bass
+    full_sc = torch.rand(RENDER_STREAMS, generator=g, device="cuda")
+    full_ms = []
+    for i in range(RENDER_BATCHES):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        frames = render_batch(cfg, rng, full, full_bass, full_sc, t_sec + i / 60.0)
+        torch.cuda.synchronize()
+        full_ms.append((time.perf_counter() - t) * 1e3)
+    frames_ok(frames, RENDER_STREAMS, "synthetic scene")
+    full_med = float(np.median(full_ms[1:]))
+    print(f"synthetic scene (K={cfg.max_balls} full in every stream, {float(vis.sum(dim=1).float().mean()):.1f} "
+          f"visible balls a stream): render_batch ms median {full_med:.3f} (min {min(full_ms[1:]):.3f}, "
+          f"max {max(full_ms[1:]):.3f}), "
+          f"{RENDER_STREAMS * 1e3 / full_med:.1f} frames/s")
+    numbers["full_k"] = dict(batch_ms=full_med, batch_min_ms=min(full_ms[1:]), batch_max_ms=max(full_ms[1:]),
+                             frames_per_s=RENDER_STREAMS * 1e3 / full_med, **measure(
+                                 "synthetic scene", lambda: render_batch(cfg, rng, full, full_bass, full_sc, t_sec),
+                                 full, full_bass, full_sc, t_sec, RENDER_STREAMS))
+    del full, frames
+    torch.cuda.empty_cache()
+
+    # (c) tests/golden/render_golden.npz replayed on the card, through the
+    # port's own scene (io/golden.py)
+    g_cfg, g_rng, g_balls, g_bass, g_debug, g_sc, g_t = render_scene_inputs(device="cuda")
+    with np.load(os.path.join(ROOT, "tests", "golden", "render_golden.npz")) as zf:
+        golden = {k: zf[k] for k in ("plain", "overlay")}
+    numbers["golden"] = {}
+    for key, debug in (("plain", None), ("overlay", g_debug)):
+        got = render_frame(g_cfg, g_rng, g_balls, g_bass, g_sc, g_t, debug=debug).cpu().numpy().astype(int)
+        d = np.abs(got - golden[key].astype(int))
+        check(got.shape == golden[key].shape and d.max() <= 1,
+              f"render golden {key} on the card: a value moved by {d.max()}")
+        numbers["golden"][key] = dict(max_step=int(d.max()), values_moved=int((d > 0).sum()), values=int(d.size))
+    print(f"render golden on the card (160x90, f32): {json.dumps(numbers['golden'])} (tol one 8-bit step)")
+
+    # (d) the card against the CPU: render_batch of streams 0-3 at 640x360,
+    # plain and with the debug overlay, the inputs moved to the CPU
+    def to_cpu(obj):
+        return type(obj)(**{f.name: getattr(obj, f.name).cpu() for f in dataclasses.fields(obj)})
+
+    a4 = rows(out.analysis, dbg_rows)
+    debug4 = render_mod.DebugInputs(
+        x_vqt_smoothed=a4.x_vqt_smoothed, peaks=a4.peaks, peak_center=a4.peak_center, peak_size=a4.peak_size,
+        calmness=a4.calmness, graph_values=graph.trace()[0], spectrogram=spectrogram.image,
+        spectrogram_write_index=spectrogram.write_index, chroma=viewer.chroma[dbg_rows],
+    )
+    balls4, bass4, sc4 = rows(viewer.balls, dbg_rows), rows(viewer.bass, dbg_rows), sc[dbg_rows]
+    numbers["card_vs_cpu"] = {}
+    card_frames = {}
+    for key, debug in (("plain", None), ("overlay", debug4)):
+        card = render_batch(cfg, rng, balls4, bass4, sc4, t_sec, debug=debug)
+        card_frames[key] = card
+        t = time.perf_counter()
+        host = render_batch(cfg, rng, to_cpu(balls4), to_cpu(bass4), sc4.cpu(), t_sec,
+                            debug=None if debug is None else to_cpu(debug))
+        cpu_s = time.perf_counter() - t
+        d = (card.cpu().to(torch.int32) - host.to(torch.int32)).abs()
+        check(int(d.max()) <= 1, f"render {key}, card vs CPU: a value moved by {int(d.max())}")
+        numbers["card_vs_cpu"][key] = dict(max_step=int(d.max()), share_moved=float((d > 0).float().mean()),
+                                           cpu_s=cpu_s)
+    # a caller that allows TF32: the bloom's products stay IEEE float32
+    # (frames torch.equal); and what TF32 there would do to the frames
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        check(torch.equal(render_batch(cfg, rng, balls4, bass4, sc4, t_sec), card_frames["plain"]),
+              "render under a caller's allow_tf32=True differs from the default")
+        guard = render_mod._full_f32_matmul
+        render_mod._full_f32_matmul = lambda device: contextlib.nullcontext()
+        try:
+            tf32 = render_batch(cfg, rng, balls4, bass4, sc4, t_sec)
+        finally:
+            render_mod._full_f32_matmul = guard
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    d = (tf32.to(torch.int32) - card_frames["plain"].to(torch.int32)).abs()
+    numbers["tf32_bloom"] = dict(max_step=int(d.max()), share_moved=float((d > 0).float().mean()))
+    print(f"render on the card vs on the CPU ({CARD_CPU_STREAMS} streams, 640x360; tol one step): "
+          f"{json.dumps(numbers['card_vs_cpu'])}; under a caller's allow_tf32=True the frames are torch.equal to the "
+          f"default (the bloom's products run IEEE float32); with TF32 in the bloom they would move "
+          f"{json.dumps(numbers['tf32_bloom'])}")
+
+    # (e) one render after warm-up under set_sync_debug_mode("error")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        render_streams(cfg, rng, viewer, sc, t_sec, streams=watched)
+        render_batch(cfg, rng, balls4, bass4, sc4, t_sec, debug=debug4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f'render_streams of {RENDER_STREAMS} streams and a debug render_batch under set_sync_debug_mode("error"): '
+          f"no host synchronisation")
+    del pipe, out, viewer, audio
+    torch.cuda.empty_cache()
+
+    entry = dict(
+        name="composite", route="cuda", source="pitchvis_tpu_torch/csrc/composite.cu",
+        replaces="pitchvis_tpu/models/render.py:999", also_replaces="pitchvis_tpu/models/render.py:829",
+        max_abs_err=kernel["max_abs_err"], ms=kernel["ms"], card_ms=kernel["card_ms"], plain_ms=kernel["plain_ms"],
+        bound_ms=kernel["bound_ms"], bound_by=kernel["bound_by"], library_ms=None,
+        launches=path_composite, launches_by_path={"render": path_composite},
+    )
+    numbers["composite"] = kernel
+    return path_counts, entry, numbers
+
+
 def main() -> None:
     import torch
 
@@ -1765,19 +2148,24 @@ def main() -> None:
     # and the trainer do in a caller's process
     with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False, allow_tf32=True):
         ml_counts, ml_numbers = ml_phase(torch, counts, reset_counts, gen)
+
+    # ---- 8. the rasterizer --------------------------------------------------------
+    render_counts, kernels["composite"], render_numbers = render_phase(torch, params, counts, reset_counts, gen)
     for label, key in (("vqt_power_bf16", "vqt"), ("vqt_power_f32", "vqt"), ("peaks", "peaks"), ("agc", "agc")):
         by_path = {"pipeline": kernels[label]["launches"],
                    "server": server_counts[key] if label != "vqt_power_f32" else 0,
                    "output_stages": stage_counts[key] if label != "vqt_power_f32" else 0,
-                   "ml": ml_counts[key] if label != "vqt_power_f32" else 0}
+                   "ml": ml_counts[key] if label != "vqt_power_f32" else 0,
+                   "render": render_counts[key] if label != "vqt_power_f32" else 0}
         kernels[label]["launches_by_path"] = by_path
         kernels[label]["launches"] = sum(by_path.values())
 
-    order = ("vqt_power_bf16", "vqt_power_f32", "peaks", "agc")
+    order = ("vqt_power_bf16", "vqt_power_f32", "peaks", "agc", "composite")
     print(json.dumps({"vqt_times": vqt_times}))
     print(json.dumps({"analysis_step": analysis_profile}))
     print(json.dumps({"output_stages": stage_numbers}))
     print(json.dumps({"ml_stage": ml_numbers}))
+    print(json.dumps({"render": render_numbers}))
     print(json.dumps({"kernels": [kernels[n] for n in order]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

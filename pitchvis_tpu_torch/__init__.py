@@ -3,6 +3,9 @@
 The streaming hop (ring + AGC -> fused VQT -> analysis) runs on an NVIDIA
 H100 through three hand-written CUDA kernels (csrc/: VQT, peak primitives,
 AGC), each with a plain PyTorch version that runs for CPU tensors. The
+rasterizer (models/render.py: ``render_streams``, ``render_batch``,
+``render_frame``) turns the viewer's outputs into uint8 sRGB frames, its
+back-to-front patch composite a fourth kernel (csrc/composite.cu). The
 stages after the analysis, the ML inference (models/pitch_mlp.py,
 models/ml_system.py), the LED color block (io/led.py) and the viewer's
 display outputs (models/viewer.py), are plain PyTorch, as is the model's
@@ -40,6 +43,7 @@ from .models.pipeline import (
     pipeline_step,
     pipeline_step_multi,
 )
+from .models.render import DebugInputs, RenderConfig, make_scene, render_batch, render_frame, render_streams
 from .ops.vqt import (
     Vqt,
     VqtArrays,
@@ -75,6 +79,12 @@ __all__ = [
     "init_ml_state_batch",
     "ml_step_batch",
     "PitchMLP",
+    "DebugInputs",
+    "RenderConfig",
+    "make_scene",
+    "render_batch",
+    "render_frame",
+    "render_streams",
     "PipelineOutputs",
     "PipelineState",
     "StreamingPipeline",

@@ -11,6 +11,8 @@ tensors on the card unless given ``device="cpu"``, and raise without CUDA.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -18,7 +20,8 @@ from .core.device import resolve_device
 from .models.analysis import AnalysisState
 from .models.ml_system import MlState
 from .models.pipeline import PipelineState
-from .models.viewer import BALL_LEAVES, BallState
+from .models.render import DebugInputs
+from .models.viewer import BALL_LEAVES, BallOutputs, BallState, BassSpiralOutputs
 from .ops.vqt import VqtArrays
 from .ops.vqt_pallas import PallasVqtArrays
 from .stream.ring import RingState
@@ -92,6 +95,52 @@ def ball_state_from_numpy(arrays: dict, device="cuda") -> BallState:
 
 def ball_state_to_numpy(balls: BallState) -> dict:
     return {k: tensor_to_numpy(getattr(balls, k)) for k in BALL_LEAVES}
+
+
+def _dataclass_from_numpy(cls, arrays: dict, per_frame: bool, device) -> object:
+    """``cls`` from ``arrays`` by its field names, each leaf on ``device``
+    with a leading stream axis of one added where ``per_frame``."""
+    device = resolve_device(device)
+    leaves = {}
+    for f in dataclasses.fields(cls):
+        a = np.asarray(arrays[f.name])
+        leaves[f.name] = tensor_from_numpy(a[None] if per_frame else a, device)
+    return cls(**leaves)
+
+
+def _dataclass_to_numpy(obj) -> dict:
+    return {f.name: tensor_to_numpy(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+
+
+def ball_outputs_from_numpy(arrays: dict, device="cuda") -> BallOutputs:
+    """The viewer's ball outputs (what the rasterizer reads) from ``arrays``
+    by the BallOutputs field names: batched ((B, n) leaves, a JAX
+    pipeline's ``viewer.balls``) or one frame ((n,) leaves, the JAX
+    ``update_balls``), which gains a stream axis of one."""
+    return _dataclass_from_numpy(BallOutputs, arrays, np.ndim(arrays["position"]) == 2, device)
+
+
+def ball_outputs_to_numpy(balls: BallOutputs) -> dict:
+    return _dataclass_to_numpy(balls)
+
+
+def bass_spiral_outputs_from_numpy(arrays: dict, device="cuda") -> BassSpiralOutputs:
+    """The bass spiral's outputs from ``arrays`` ("visible", "rgba"):
+    batched, or one frame (``rgba`` (4,)), which gains a stream axis of
+    one."""
+    return _dataclass_from_numpy(BassSpiralOutputs, arrays, np.ndim(arrays["rgba"]) == 1, device)
+
+
+def bass_spiral_outputs_to_numpy(bass: BassSpiralOutputs) -> dict:
+    return _dataclass_to_numpy(bass)
+
+
+def debug_inputs_from_numpy(arrays: dict, device="cuda") -> DebugInputs:
+    """The rasterizer's debug-overlay inputs from ``arrays`` by the
+    DebugInputs field names: batched, or one frame (``x_vqt_smoothed``
+    (n,), the JAX package's per-frame DebugInputs), which gains a stream
+    axis of one."""
+    return _dataclass_from_numpy(DebugInputs, arrays, np.ndim(arrays["x_vqt_smoothed"]) == 1, device)
 
 
 def pitch_mlp_params_from_numpy(tree: dict, device="cuda") -> dict:

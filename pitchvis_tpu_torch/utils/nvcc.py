@@ -36,6 +36,9 @@ EXTRA_FLAGS: dict[str, list[str]] = {
     # __fmaf_rn and each plain rounding with __fmul_rn/__fadd_rn; no other
     # contraction may change its bits
     "agc": ["-fmad=false"],
+    # the blend rounds each product, difference and sum on its own, in the
+    # plain version's order
+    "composite": ["-fmad=false"],
     # an empty kernel, for timing what a launch costs (no path calls it)
     "launch_floor": [],
 }

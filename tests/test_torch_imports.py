@@ -12,7 +12,8 @@ import torch
 import numpy as np
 import pitchvis_tpu_torch as pt
 from pitchvis_tpu_torch.models.pitch_mlp import PitchMLP
-from pitchvis_tpu_torch.ops import agc, peaks_pallas, vqt_pallas
+from pitchvis_tpu_torch.models.render import RenderConfig, make_scene, render_streams
+from pitchvis_tpu_torch.ops import agc, composite, peaks_pallas, vqt_pallas
 from pitchvis_tpu_torch.train.train import TrainConfig, train
 
 from conftest import SMALL_PARAMS
@@ -44,7 +45,8 @@ def test_port_files_found():
     files = _port_files()
     assert len(files) > 15
     assert any(f.endswith("chip_smoke.py") for f in files)
-    for module in ("models/pitch_mlp.py", "models/ml_system.py", "train/train.py"):
+    for module in ("models/pitch_mlp.py", "models/ml_system.py", "train/train.py", "models/render.py",
+                   "models/glyph_atlas.py", "ops/composite.py"):
         assert os.path.join(ROOT, "pitchvis_tpu_torch", module) in files, module
 
 
@@ -54,13 +56,15 @@ def test_no_jax_imports(path):
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
-@pytest.mark.parametrize("entry", ["pipeline", "vqt", "arrays", "server", "train", "model"])
+@pytest.mark.parametrize("entry", ["pipeline", "vqt", "arrays", "server", "train", "model", "render"])
 def test_entry_points_raise_without_cuda(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     params = to_port(SMALL_PARAMS)
     with pytest.raises(RuntimeError, match="CUDA"):
         if entry == "train":
             train(np.zeros((8, 8 + 128), np.float32), TrainConfig(n_buckets=8, t_window=2, mlp_size=8, epochs=1))
+        elif entry == "render":
+            make_scene(RenderConfig(width=32, height=24), params.range)
         elif entry == "model":
             PitchMLP(input_bins=40, mlp_size=8, mlp_layers=1)
         elif entry == "pipeline":
@@ -75,9 +79,13 @@ def test_entry_points_raise_without_cuda(entry, monkeypatch):
 
 def test_cpu_wrappers_take_the_plain_versions():
     """On CPU tensors the kernels' wrappers run their plain versions and
-    count no launch."""
-    before = (agc.launches, peaks_pallas.launches, vqt_pallas.launches)
-    pipe = pt.StreamingPipeline(2, to_port(SMALL_PARAMS), path="pallas", fast=True, device="cpu")
+    count no launch, a render included."""
+    before = (agc.launches, peaks_pallas.launches, vqt_pallas.launches, composite.launches)
+    params = to_port(SMALL_PARAMS)
+    pipe = pt.StreamingPipeline(2, params, path="pallas", fast=True, with_viewer=True, device="cpu")
     out = pipe.step(torch.zeros(2, 367), 367 / 22050)
     assert out.x_vqt.shape == (2, SMALL_PARAMS.n_buckets)
-    assert (agc.launches, peaks_pallas.launches, vqt_pallas.launches) == before
+    frames = render_streams(RenderConfig(width=64, height=36, ball_patch=16, max_balls=8), params.range, out.viewer,
+                            out.analysis.scene_calmness, 0.0, streams=range(2))
+    assert frames.shape == (2, 36, 64, 3) and frames.dtype == torch.uint8
+    assert (agc.launches, peaks_pallas.launches, vqt_pallas.launches, composite.launches) == before
