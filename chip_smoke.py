@@ -7,7 +7,8 @@ Run from the root of the checkout on a machine with a CUDA card and the CUDA
 toolkit (nvcc). Phases, each of which fails the run on any error:
 
 1. builds the CUDA sources of pitchvis_tpu_torch/csrc/ (the four kernels
-   and an empty kernel for timing a launch; one nvcc each, in parallel) and
+   and an empty kernel for timing a launch; one nvcc each, in parallel; the
+   two native host libraries with g++ beside them) and
    prints the build seconds and the card's name and power limit;
 2. holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (default VqtParameters, B=2048 streams): the VQT in f32
@@ -114,13 +115,31 @@ toolkit (nvcc). Phases, each of which fails the run on any error:
    step), and under a caller's allow_tf32=True (torch.equal to the
    default); one render_streams and one debug render under
    set_sync_debug_mode("error").
+9. runs the training-data path at TRAIN_VQT_PARAMETERS on the corpus's own
+   60-second files (build_training_font and build_midi_corpus(..., 8, 60.0,
+   seed=0) under build/dataset_phase/, deleted after): the AGC kernel's
+   signal mode (csrc/agc.cu, ops/agc.py::agc_signal) torch.equal to its
+   plain version over a whole file (and to the chunk mode carried chunk by
+   chunk), at B=8 rows of 2 s, with silent chunks, energies just under and
+   over 1e-6, C=1, C=0, strided and unaligned rows and the empty batch, with
+   its time, its plain version's, its bound and the chain's latency floor;
+   generate_dataset_device over the 8 files (frames/s, the split into render,
+   AGC, windows + VQT and labels, launches, peak memory), render and AGC of
+   one file under set_sync_debug_mode("error"); generate_dataset on 2 files
+   with the font and 2 workers, on the card against the CPU (targets equal,
+   spectra within 1e-2 dB); the device route against the host route on one
+   file without a font (tests/test_device_dataset.py's criteria); the device
+   route on the card against the CPU on 3 s; and train_demo(8 files of 60 s,
+   1 epoch) end to end, with a train step on its rows.
 
 It prints a JSON line of the VQT's times by part, one of the analysis step's
 launches and times, one of the output stages' numbers, one of the ML phase's
 (``ml_stage``), one of the rasterizer's (``render``), one of per-kernel
 numbers (``launches`` summed over the pipeline's, the server's, the
 output-stage pipeline's, the ML pipeline's and server's and the render
-path's measured hops and batches, ``launches_by_path`` each), then the
+path's measured hops and batches, ``launches_by_path`` each; the
+``agc_signal`` entry's over the device route's files), one of the dataset
+phase's (``dataset``), then the
 nvidia-smi line, and as its last line ``{"ok": true, "device": {...}}``.
 Without CUDA it exits 1 and prints no result.
 """
@@ -228,7 +247,8 @@ def time_ms(torch, fn, reps: int = 7, inner: int = 10) -> float:
     return float(np.median(times))
 
 
-def device_trace(torch, fn, kernel: str | None = None, inner: int = 1, ops: list | None = None) -> tuple[int, float]:
+def device_trace(torch, fn, kernel: str | None = None, inner: int = 1, ops: list | None = None,
+                 required: bool = True) -> tuple[int, float | None]:
     """Runs ``fn`` ``inner`` times under torch.profiler and reads the device
     side of its trace (kernels, copies, memsets). With ``kernel``: (events
     whose name contains it, their mean device time in ms), the time of one
@@ -236,7 +256,8 @@ def device_trace(torch, fn, kernel: str | None = None, inner: int = 1, ops: list
     time in ms). Appends (name, device ms) of each such event to ``ops`` if
     given. The profiler now and then records no device event of a window:
     such a trace is taken again, up to three times in all. Fails if the
-    profiler saw no such event."""
+    profiler saw no such event, or with ``required=False`` returns (0,
+    None)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -253,6 +274,8 @@ def device_trace(torch, fn, kernel: str | None = None, inner: int = 1, ops: list
     if ops is not None:
         ops.extend((e.name, e.device_time_total / 1e3) for e in events)
     times_us = [e.device_time_total for e in events]
+    if not times_us and not required:
+        return 0, None
     check(len(times_us) > 0, f"the profiler traced no device activity ({kernel or 'any kernel'})")
     total_ms = sum(times_us) / 1e3
     return len(times_us), total_ms / len(times_us) if kernel else total_ms
@@ -1638,6 +1661,397 @@ def render_phase(torch, params, counts, reset_counts, gen) -> tuple[dict, dict, 
     return path_counts, entry, numbers
 
 
+DATASET_FILES = 8  # phase 9: 60-second corpus files of the device route
+DATASET_SECONDS = 60.0
+HOST_FILES = 2  # phase 9 (c): files of the host route, on the card and on the CPU
+CARD_CPU_SECONDS = 3.0  # phase 9 (e): seconds of one file, device route on the card and on the CPU
+# phase 9 tolerances. The AGC's signal mode equals its plain version and the
+# chunk mode bit for bit. The device route against the host route: the
+# criteria of tests/test_device_dataset.py::TestDeviceAnnotate (the same key
+# sets, labels on the same side of 0.5, strong bins within 3 dB). Card
+# against CPU, those tests/test_torch_dataset.py states against the JAX
+# package: the render within 1e-6 of the signal's peak, label gains rtol
+# 1e-5, spectra within 1e-2 dB where they stand 10 dB over the floor.
+DATASET_RENDER_REL = 1e-6
+DATASET_GAIN_RTOL = 1e-5
+DATASET_DB_TOL = 1e-2
+# the AGC chain: six dependent float32 operations a sample (fmul, fmul, fma,
+# fma, max, fmul) of some four cycles each on the SM
+AGC_CHAIN_OPS = 6
+AGC_OP_CYCLES = 4
+
+
+def agc_signal_cases(torch, gen, signal) -> dict:
+    """Phase 9 (a): the AGC kernel's signal mode (ops/agc.py::agc_signal)
+    against agc_signal_plain on the card, torch.equal, gains included, and
+    over the whole 60-second file ``signal`` ((1, N) on the card) also
+    against the chunk mode called chunk by chunk with the gain carried.
+    Over that file the plain version would take 1.33 M eager steps; it is
+    run there as its own per-chunk calls (agc_chunk_plain) on all chunks at
+    once, each from the gain the kernel reached before it: every chunk's
+    output and end gain equal to the kernel's is, chunk by chunk from the
+    first (gain 1), the sequential plain version's result. Its time, its
+    plain version's at 2 s and its bound (bytes, and the chain's latency
+    floor beside it)."""
+    from pitchvis_tpu_torch.ops import agc as agc_mod
+    from pitchvis_tpu_torch.train.device_dataset import TRAIN_AGC
+
+    dev = "cuda"
+    chunk = 1984
+    p = TRAIN_AGC
+
+    def run(x):
+        before = agc_mod.signal_launches
+        got = agc_mod.agc_signal(x, chunk, p)
+        n_chunks = x.shape[1] // chunk
+        launched = agc_mod.signal_launches - before
+        check(launched == (1 if x.shape[0] and n_chunks else 0),
+              f"agc_signal on {tuple(x.shape)}: {launched} launches")
+        return got
+
+    # (1) the whole file against the chunk mode, chunk by chunk, and the plain version per chunk
+    out, gains = run(signal)
+    n_chunks = signal.shape[1] // chunk
+    g = torch.ones(1, device=dev)
+    outs, carried = [], []
+    for c in range(n_chunks):
+        g, o = agc_mod.agc_chunk(g, signal[:, c * chunk : (c + 1) * chunk], p)
+        outs.append(o)
+        carried.append(g)
+    same_chunk = bool(torch.equal(out, torch.cat(outs, 1))) and bool(torch.equal(gains, torch.stack(carried, 1)))
+    starts = torch.cat([torch.ones(1, device=dev), gains[0, :-1]])
+    g_p, o_p = agc_mod.agc_chunk_plain(starts, signal[0, : n_chunks * chunk].view(n_chunks, chunk), p)
+    same_plain = bool(torch.equal(o_p.reshape(1, -1), out)) and bool(torch.equal(g_p, gains[0]))
+    frozen = int(((signal[0, : n_chunks * chunk].view(n_chunks, chunk) ** 2).sum(1) < agc_mod.SILENCE_ENERGY).sum())
+    print(f"agc signal mode on one {signal.shape[1] / 22050:.1f}-second corpus file ({n_chunks} chunks of {chunk}, "
+          f"{frozen} frozen): equal to the chunk mode chunk by chunk: {same_chunk}; to the plain version: {same_plain}")
+    check(same_chunk, "AGC signal mode differs from the chunk mode carried chunk by chunk")
+    check(same_plain, "AGC signal mode differs from its plain version over the whole file")
+
+    # (2) small cases against agc_signal_plain itself
+    def audio(b, n, scale=0.3):
+        return torch.randn((b, n), generator=gen, device=dev) * scale
+
+    rows8 = audio(8, int(2 * 22050))
+    silent = audio(3, 6 * chunk)
+    silent[0, 2 * chunk : 4 * chunk] = 0.0
+    silent[2, chunk : 2 * chunk] = 0.0
+    edge = audio(2, 4 * chunk)
+    for row, target in ((0, 0.99e-6), (1, 1.01e-6)):  # chunk 1 just under and just over the freeze
+        seg = edge[row, chunk : 2 * chunk]
+        edge[row, chunk : 2 * chunk] = seg * float(np.sqrt(target / float((seg.double() ** 2).sum())))
+    base = audio(4, 3 * (5 * chunk + 7))
+    cases = {
+        "B=8 rows of 2 s (22 chunks and a ragged tail)": rows8,
+        "rows with silent chunks in the middle": silent,
+        "chunks of energy just under and just over 1e-6": edge,
+        "C=1 and a ragged tail": audio(4, chunk + 100),
+        "fewer samples than a chunk (C=0)": audio(2, chunk - 1),
+        "a strided view (every third sample)": base[:, ::3][:, : 5 * chunk],
+        "rows off 16-byte alignment (row stride 3 * (5 * chunk + 7))": base[1:, 3 : 3 + 5 * chunk],
+        "the empty batch": audio(0, 3 * chunk),
+    }
+    plain_ms = None
+    for label, x in cases.items():
+        got_out, got_gains = run(x)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        want_out, want_gains = agc_mod.agc_signal_plain(x, chunk, p)
+        ev[1].record()
+        torch.cuda.synchronize()
+        if x is rows8:
+            plain_ms = ev[0].elapsed_time(ev[1])
+        check(got_out.shape == want_out.shape and got_gains.shape == want_gains.shape,
+              f"agc signal mode, {label}: shapes {tuple(got_out.shape)}, {tuple(got_gains.shape)}")
+        check(torch.equal(got_out, want_out) and torch.equal(got_gains, want_gains),
+              f"AGC signal mode differs from agc_signal_plain: {label}")
+    gains_edge = run(edge)[1]
+    check(bool(gains_edge[0, 1] == gains_edge[0, 0]) and bool(gains_edge[1, 1] != gains_edge[1, 0]),
+          "the chunk under 1e-6 must keep its gain, the one over it must not")
+    print(f"agc signal mode equal (torch.equal, gains included) to agc_signal_plain on the card in {len(cases)} "
+          f"cases: " + "; ".join(cases))
+
+    n = signal.shape[1] // chunk * chunk
+    ms = time_ms(torch, lambda: agc_mod.agc_signal(signal, chunk, p), reps=5, inner=3)
+    # the kernel alone: CUDA events around one launch on an idle stream (a
+    # launch takes microseconds of its some 30 ms; the profiler, which loses
+    # a window's events now and then, is not needed for one kernel this long)
+    card_ms = time_ms(torch, lambda: agc_mod.agc_signal(signal, chunk, p), reps=5, inner=1)
+    rows8_ms = time_ms(torch, lambda: agc_mod.agc_signal(rows8, chunk, p), reps=5, inner=5)
+    # each sample read once and written once, each chunk's gain written once;
+    # seven float operations a sample at the FFMA rate
+    bytes_moved = 8 * n + 4 * n_chunks
+    b_ms, b_by = bound_ms(bytes_moved, 7.0 * n, F32_FLOPS)
+    clock_mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                                     capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
+    chain_ms = n * AGC_CHAIN_OPS * AGC_OP_CYCLES / (clock_mhz * 1e3)
+    print(f"agc signal mode, one file (B=1, {n} samples): {ms:.4f} ms a call (3 in a row), {card_ms:.4f} ms on the "
+          f"card alone (one launch between CUDA events), "
+          f"{card_ms * 1e6 / n:.2f} ns a sample; bound {b_ms:.5f} ms ({b_by}: {bytes_moved / 1e6:.2f} MB); the "
+          f"chain's latency floor {chain_ms:.3f} ms ({AGC_CHAIN_OPS} dependent operations of {AGC_OP_CYCLES} cycles "
+          f"a sample at {clock_mhz:.0f} MHz); B=8 rows of 2 s: kernel {rows8_ms:.4f} ms, plain {plain_ms:.1f} ms; "
+          f"no single PyTorch call computes the same function (library none)")
+    return dict(cases=["one 60-second corpus file against the chunk mode and the plain version"] + list(cases),
+                max_abs_err=0.0, ms=ms, card_ms=card_ms, ns_per_sample=card_ms * 1e6 / n, plain_ms=plain_ms,
+                plain_at="B=8 rows of 2 s", rows8_ms=rows8_ms, bound_ms=b_ms, bound_by=b_by, bytes=bytes_moved,
+                chain_floor_ms=chain_ms, sm_clock_mhz=clock_mhz, samples=n, chunks=n_chunks)
+
+
+def labels_close(a: dict, b: dict, rtol: float | None = None) -> bool:
+    """Two label dicts: the same keys, each on the same side of 0.5, and
+    within ``rtol`` of each other where given."""
+    if set(a) != set(b) or any((a[k] > 0.5) != (b[k] > 0.5) for k in a):
+        return False
+    return rtol is None or all(abs(a[k] - b[k]) <= rtol * max(abs(a[k]), 1e-12) for k in a)
+
+
+def dataset_phase(torch, counts, reset_counts) -> tuple[dict, dict]:
+    """Phase 9: the training-data path at TRAIN_VQT_PARAMETERS (22050 Hz,
+    n_fft 32768, 252 bins, chunks of 1984 samples) on the corpus's own
+    60-second files. Returns (the agc_signal kernels entry, the phase's
+    numbers)."""
+    import shutil
+
+    from pitchvis_tpu_torch.core.config import TRAIN_VQT_PARAMETERS as params
+    from pitchvis_tpu_torch.ops import agc as agc_mod
+    from pitchvis_tpu_torch.ops.vqt import Vqt
+    from pitchvis_tpu_torch.synth.midi import load_midi
+    from pitchvis_tpu_torch.train import dataset as ds
+    from pitchvis_tpu_torch.train import device_dataset as dd
+    from pitchvis_tpu_torch.train.corpus import build_midi_corpus, build_training_font, train_demo
+    from pitchvis_tpu_torch.train.train import TrainConfig, make_model, make_optimizer, train_step, window_data
+
+    work = os.path.join(ROOT, "build", "dataset_phase")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    row = params.n_buckets + 128
+    numbers = {}
+    artifacts = os.path.join(ROOT, "artifacts")
+    artifacts_before = sorted(os.listdir(artifacts)) if os.path.isdir(artifacts) else None
+
+    t = time.perf_counter()
+    font = os.path.join(work, "train_font.sf2")
+    programs = build_training_font(font, seed=0)
+    paths = build_midi_corpus(os.path.join(work, "midi"), DATASET_FILES, DATASET_SECONDS, seed=0, programs=programs)
+    numbers["corpus_build_s"] = time.perf_counter() - t
+    vqt = Vqt(params, device="cuda")
+    chunk = ds._chunk_samples(vqt, int(params.sr))
+    check(chunk == 1984, f"chunk {chunk} at TRAIN_VQT_PARAMETERS, expected 1984")
+    midis = [load_midi(p) for p in paths]
+
+    def render_inputs(midi, max_seconds=None):
+        sched, n_samples = dd._render_inputs(midi, params, chunk, max_seconds)
+        k_pad = max(16, 1 << (len(sched) - 1).bit_length())
+        return sched, n_samples, dd._note_tensors(sched, "cuda", k_pad)
+
+    # (a) the kernel's signal mode on the first file's own signal
+    sched, n_samples, notes = render_inputs(midis[0])
+    signal = dd._render_core(*notes, n_samples, params.sr, dd.DEFAULT_MASTER_GAIN)[None, :]
+    kernel = agc_signal_cases(torch, torch.Generator(device="cuda").manual_seed(SEED), signal)
+    del signal
+
+    # (b) the device route over the corpus: the main path of this phase
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    agc_mod.signal_launches = 0
+    t = time.perf_counter()
+    data = dd.generate_dataset_device(paths, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    path_signal = agc_mod.signal_launches
+    path_counts = counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    frames = len(data) // row
+    check(len(data) == frames * row and frames > 0 and bool(np.isfinite(data).all()),
+          f"device route: {len(data)} floats, not finite rows of {row}")
+    check(path_signal == len(paths), f"device route: {path_signal} agc_signal launches for {len(paths)} files")
+    rows = data.reshape(frames, row)
+    check(set(np.unique(rows[:, params.n_buckets:])) <= {0.0, 1.0} and rows[:, params.n_buckets:].sum() > 0,
+          "device route: targets not binary or all zero")
+    # its split by stage, file by file again: render and AGC by CUDA events,
+    # windows + VQT (to the host) and labels by the host clock
+    split = {"render": 0.0, "agc": 0.0, "windows_vqt": 0.0, "labels": 0.0}
+    notes_total = 0
+    for midi in midis:
+        sched, n_samples, notes = render_inputs(midi)
+        notes_total += len(sched)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        sig = dd._render_core(*notes, n_samples, params.sr, dd.DEFAULT_MASTER_GAIN)
+        ev[1].record()
+        processed, gains = agc_mod.agc_signal(sig[None, :], chunk, dd.TRAIN_AGC)
+        ev[2].record()
+        torch.cuda.synchronize()
+        split["render"] += ev[0].elapsed_time(ev[1])
+        split["agc"] += ev[1].elapsed_time(ev[2])
+        caps = [c for c in range(1, gains.shape[1] + 1) if c % ds.STEP_SIZE_IN_CHUNKS == 0]
+        t = time.perf_counter()
+        windows = ds._slice_windows(processed[0], stride=ds.STEP_SIZE_IN_CHUNKS * chunk, n_caps=len(caps),
+                                    n_fft=params.n_fft)
+        ds._batched_specs(vqt, windows)
+        split["windows_vqt"] += (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        g_host = gains[0].cpu().numpy()
+        for c in caps:
+            dd.active_keys_at(sched, c * chunk / params.sr, float(g_host[c - 1]))
+        split["labels"] += (time.perf_counter() - t) * 1e3
+    # render and AGC of one file: its device ops and time (the fullest of
+    # three traces) against its time to its end, then under sync-debug
+    # "error": it must not wait for the card
+    sched, n_samples, notes = render_inputs(midis[1])
+
+    def render_agc():
+        return dd._render_agc(*notes, n_samples=n_samples, sr=params.sr, chunk=chunk)
+
+    traces = [device_trace(torch, render_agc, required=False) for _ in range(3)]
+    file_ops, file_device_ms = max(traces, key=lambda t: t[0])
+    file_wall = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        render_agc()
+        torch.cuda.synchronize()
+        file_wall.append((time.perf_counter() - t) * 1e3)
+    file_wall_ms = float(np.median(file_wall))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        render_agc()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    device_route = dict(files=len(paths), seconds_per_file=DATASET_SECONDS, frames=frames, wall_s=wall,
+                        frames_per_s=frames / wall, s_per_file=wall / len(paths), notes=notes_total,
+                        split_ms=split, agc_signal_launches=path_signal, other_launches=path_counts,
+                        peak_gib=peak_gib, file_ops=file_ops, file_device_ms=file_device_ms,
+                        file_wall_ms=file_wall_ms)
+    numbers["device_route"] = device_route
+    print(f"device route (generate_dataset_device, {len(paths)} corpus files of {DATASET_SECONDS:.0f} s, "
+          f"{notes_total} notes): {frames} frames in {wall:.3f} s, {frames / wall:.1f} frames/s, "
+          f"{wall / len(paths):.3f} s a file; split over the files (render, AGC by CUDA events; windows + VQT, "
+          f"labels by the host clock): " + json.dumps({k: round(v, 3) for k, v in split.items()})
+          + f" ms; launches: agc_signal {path_signal}, others {path_counts}; peak device memory {peak_gib:.2f} GiB")
+    busy = ("not measured (the profiler traced no device event in 9 tries)" if file_device_ms is None else
+            f"{file_ops} device ops, {file_device_ms:.3f} ms on the card (profiler), the card busy "
+            f"{100 * file_device_ms / file_wall_ms:.1f}% of it")
+    print(f"device route, render and AGC of one file ({len(sched)} notes): {file_wall_ms:.3f} ms to its end (host "
+          f"clock, median of 3); {busy}; the AGC runs on one SM of "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count}")
+    print('device route: render and AGC of one file under set_sync_debug_mode("error"): no host synchronisation')
+
+    # (c) the host route: native synthesis with the training font, the VQT on the card, then on the CPU
+    kw = dict(sound_font_path=font, n_workers=2)
+    t = time.perf_counter()
+    host_card = ds.generate_dataset(paths[:HOST_FILES], params, **kw)
+    host_wall = time.perf_counter() - t
+    host_cpu = ds.generate_dataset(paths[:HOST_FILES], params, device="cpu", **kw)
+    hc, hp = host_card.reshape(-1, row), host_cpu.reshape(-1, row)
+    check(hc.shape == hp.shape and len(hc) > 0, f"host route: {hc.shape} rows on the card, {hp.shape} on the CPU")
+    check(np.array_equal(hc[:, params.n_buckets:], hp[:, params.n_buckets:]), "host route: targets differ card/CPU")
+    strong = hp[:, : params.n_buckets] >= 10.0
+    db_err = float(np.abs(hc[:, : params.n_buckets] - hp[:, : params.n_buckets])[strong].max())
+    db_err_all = float(np.abs(hc[:, : params.n_buckets] - hp[:, : params.n_buckets]).max())
+    check(db_err <= DATASET_DB_TOL, f"host route: spectra {db_err} dB apart card/CPU")
+    numbers["host_route"] = dict(files=HOST_FILES, frames=len(hc), wall_s=host_wall, frames_per_s=len(hc) / host_wall,
+                                 db_err_strong=db_err, db_err_all=db_err_all)
+    print(f"host route (generate_dataset, {HOST_FILES} files, the training font, 2 workers): {len(hc)} frames in "
+          f"{host_wall:.3f} s, {len(hc) / host_wall:.1f} frames/s; on the card vs on the CPU: targets equal, spectra "
+          f"within {db_err:.2e} dB where >= 10 dB (tol {DATASET_DB_TOL}), {db_err_all:.2e} dB over all bins")
+
+    # (d) device route against host route on one file without a font (both additive)
+    vqt_cpu = Vqt(params, device="cpu")
+    t = time.perf_counter()
+    host = ds.annotate_midi(midis[0], vqt, params)
+    host_s = time.perf_counter() - t
+    dev_rows = dd.annotate_midi_device(midis[0], vqt, params)
+    check(len(dev_rows) == len(host) > 0, f"device vs host route: {len(dev_rows)} rows against {len(host)}")
+    worst = 0.0
+    for (hk, hs), (dk, dsp) in zip(host, dev_rows):
+        check(labels_close(hk, dk), f"device vs host route: labels {hk} against {dk}")
+        sel = hs > 10.0
+        if sel.any():
+            worst = max(worst, float(np.abs(hs[sel] - dsp[sel]).max()))
+    check(worst < 3.0, f"device vs host route: strong bins {worst} dB apart")
+    numbers["device_vs_host"] = dict(rows=len(host), strong_db_max=worst, host_additive_s=host_s)
+    print(f"device route vs host route on one {DATASET_SECONDS:.0f}-second file, additive synthesis: {len(host)} rows, "
+          f"the same key sets, labels on the same side of 0.5, strong bins within {worst:.3f} dB (tol 3); the host "
+          f"route took {host_s:.2f} s")
+
+    # (e) the device route on the card against the CPU, on the first seconds of one file
+    sched, n_samples, notes = render_inputs(midis[0], CARD_CPU_SECONDS)
+    sig_card = dd._render_core(*notes, n_samples, params.sr, dd.DEFAULT_MASTER_GAIN).cpu()
+    notes_cpu = [x.cpu() for x in notes]
+    sig_cpu = dd._render_core(*notes_cpu, n_samples, params.sr, dd.DEFAULT_MASTER_GAIN)
+    render_rel = float((sig_card - sig_cpu).abs().max() / sig_cpu.abs().max())
+    check(render_rel <= DATASET_RENDER_REL, f"render card/CPU: {render_rel} of the peak")
+    card = dd.annotate_midi_device(midis[0], vqt, params, max_seconds=CARD_CPU_SECONDS)
+    cpu = dd.annotate_midi_device(midis[0], vqt_cpu, params, max_seconds=CARD_CPU_SECONDS)
+    check(len(card) == len(cpu) > 0, f"device route card/CPU: {len(card)} rows against {len(cpu)}")
+    db = 0.0
+    for (ck, cs), (pk, ps) in zip(card, cpu):
+        check(labels_close(ck, pk, DATASET_GAIN_RTOL), f"device route card/CPU: labels {ck} against {pk}")
+        sel = ps >= 10.0
+        if sel.any():
+            db = max(db, float(np.abs(cs[sel] - ps[sel]).max()))
+    check(db <= DATASET_DB_TOL, f"device route card/CPU: spectra {db} dB apart")
+    numbers["card_vs_cpu"] = dict(seconds=CARD_CPU_SECONDS, rows=len(card), render_rel=render_rel, db_err=db)
+    print(f"device route on the card vs on the CPU, first {CARD_CPU_SECONDS:.0f} s of one file: render within "
+          f"{render_rel:.2e} of its peak (tol {DATASET_RENDER_REL}), {len(card)} rows, labels equal within rtol "
+          f"{DATASET_GAIN_RTOL}, spectra within {db:.2e} dB where >= 10 dB (tol {DATASET_DB_TOL})")
+
+    # (f) train_demo end to end in a directory of its own
+    demo_dir = os.path.join(work, "demo")
+    t = time.perf_counter()
+    report = train_demo(out_dir=demo_dir, n_files=DATASET_FILES, seconds_per_file=DATASET_SECONDS, epochs=1,
+                        metrics_copy=None)
+    demo_s = time.perf_counter() - t
+    losses = report["metrics"]["epoch_loss"]
+    check(report["n_frames"] > 0 and len(losses) == 1 and bool(np.isfinite(losses[0])),
+          f"train_demo: {report['n_frames']} frames, losses {losses}")
+    check(os.path.isdir(os.path.join(demo_dir, "ckpt")) and os.listdir(os.path.join(demo_dir, "ckpt")),
+          "train_demo wrote no checkpoint")
+    after = sorted(os.listdir(artifacts)) if os.path.isdir(artifacts) else None
+    check(after == artifacts_before, "train_demo wrote under artifacts/")
+    # the train step on the corpus's own rows
+    cfg = TrainConfig()
+    x, y = window_data(np.load(os.path.join(demo_dir, "data.npy")), cfg)
+    b = min(cfg.batch_size, len(x))
+    xt, yt = torch.from_numpy(x[:b]).cuda(), torch.from_numpy(y[:b]).cuda()
+    model = make_model(cfg, device="cuda")
+    model.train()
+    optimizer, scheduler = make_optimizer(cfg, model)
+    tgen = torch.Generator(device="cuda").manual_seed(SEED)
+    step_ms, step_losses = [], []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step_losses.append(float(train_step(model, optimizer, xt, yt, scheduler, tgen)))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    check(all(np.isfinite(step_losses)), f"train step on the corpus: losses {step_losses}")
+    numbers["train_demo"] = dict(s=demo_s, frames=report["n_frames"], epoch_loss=losses[0],
+                                 f1_micro=report["metrics"]["f1_micro"], wall_seconds=report["wall_seconds"],
+                                 step_ms=float(np.median(step_ms[1:])), batch=b)
+    print(f"train_demo ({DATASET_FILES} files of {DATASET_SECONDS:.0f} s, 1 epoch, in {demo_dir}): "
+          f"{report['n_frames']} frames, loss {losses[0]:.4f}, micro-F1 {report['metrics']['f1_micro']:.3f}, "
+          f"{demo_s:.1f} s ({json.dumps(report['wall_seconds'])}); train step on its rows at batch {b}: "
+          f"{numbers['train_demo']['step_ms']:.3f} ms (median of 5 after one); nothing written under artifacts/")
+    del model, optimizer, xt, yt
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    numbers["agc_signal"] = kernel
+    entry = dict(
+        name="agc_signal", route="cuda", source="pitchvis_tpu_torch/csrc/agc.cu",
+        replaces="pitchvis_tpu/train/device_dataset.py:226", also_replaces="pitchvis_tpu/train/device_dataset.py:283",
+        max_abs_err=kernel["max_abs_err"], ms=kernel["ms"], card_ms=kernel["card_ms"], plain_ms=kernel["plain_ms"],
+        plain_at=kernel["plain_at"], bound_ms=kernel["bound_ms"], bound_by=kernel["bound_by"],
+        chain_floor_ms=kernel["chain_floor_ms"], library_ms=None,
+        launches=path_signal, launches_by_path={"dataset": path_signal},
+    )
+    return entry, numbers
+
+
 def main() -> None:
     import torch
 
@@ -1665,12 +2079,14 @@ def main() -> None:
     # ---- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
     # the server's native ingest library (g++) builds beside the kernels (nvcc)
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        host_lib = pool.submit(host_build.library_path, "pitchvis_native")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        host_libs = [pool.submit(host_build.library_path, lib) for lib in ("pitchvis_native", "synth_engine")]
         build_s = nvcc.build_all()
-        host_lib.result()
+        for lib in host_libs:
+            lib.result()
     print(f"build: {json.dumps(build_s)} wall {time.perf_counter() - t0:.2f} s; "
-          f"native ingest library: {host_build.build_logs.get('pitchvis_native', 'already built').splitlines()[-1]}")
+          f"native ingest library: {host_build.build_logs.get('pitchvis_native', 'already built').splitlines()[-1]}; "
+          f"synth engine: {host_build.build_logs.get('synth_engine', 'already built').splitlines()[-1]}")
     for src, log in nvcc.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1904,6 +2320,14 @@ def main() -> None:
     agc_err = max(float((g_k - g_p).abs().max()), float((o_k - o_p).abs().max()))
     print(f"agc chunk mode: gains and samples equal to the plain version: {same}")
     check(same, "AGC kernel's chunk mode differs from its plain version")
+    # the caller's freeze flags (agc_chunk(frozen=)) instead of the energy's
+    frozen = torch.rand(B, generator=gen, device=dev) < 0.5
+    frozen[7] = False  # the silent row unfrozen: its gain moves
+    g_k, o_k = agc_mod.agc_chunk(gain, chunk, frozen=frozen)
+    g_p, o_p = agc_mod.agc_chunk_plain(gain, chunk, frozen=frozen)
+    same = bool(torch.equal(g_k, g_p)) and bool(torch.equal(o_k, o_p)) and bool(torch.equal(g_k[frozen], gain[frozen]))
+    print(f"agc chunk mode with the caller's freeze flags: gains and samples equal to the plain version: {same}")
+    check(same, "AGC kernel's chunk mode with frozen= differs from its plain version")
     chunk_ms = time_ms(torch, lambda: agc_mod.agc_chunk(gain, chunk))
     _, chunk_card_ms = device_trace(torch, lambda: agc_mod.agc_chunk(gain, chunk), "ring_push_kernel", inner=20)
     chunk_plain_ms = time_ms(torch, lambda: agc_mod.agc_chunk_plain(gain, chunk), reps=3, inner=1)
@@ -2160,12 +2584,16 @@ def main() -> None:
         kernels[label]["launches_by_path"] = by_path
         kernels[label]["launches"] = sum(by_path.values())
 
-    order = ("vqt_power_bf16", "vqt_power_f32", "peaks", "agc", "composite")
+    # ---- 9. the training-data path -----------------------------------------------
+    kernels["agc_signal"], dataset_numbers = dataset_phase(torch, counts, reset_counts)
+
+    order = ("vqt_power_bf16", "vqt_power_f32", "peaks", "agc", "composite", "agc_signal")
     print(json.dumps({"vqt_times": vqt_times}))
     print(json.dumps({"analysis_step": analysis_profile}))
     print(json.dumps({"output_stages": stage_numbers}))
     print(json.dumps({"ml_stage": ml_numbers}))
     print(json.dumps({"render": render_numbers}))
+    print(json.dumps({"dataset": dataset_numbers}))
     print(json.dumps({"kernels": [kernels[n] for n in order]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -28,7 +28,22 @@
 //    samples, with a scalar head and tail to the row's alignment.
 // The chunk mode (RING=false, ops/agc.py::agc_chunk) is the same function with
 // L = T, no buffer and no vote, one warp a block: it writes the processed
-// chunk and the gain.
+// chunk and the gain. It takes the freeze flags from the caller where they
+// are given (agc_chunk(frozen=)), else computes them from the energy.
+//
+// The signal mode (agc_signal_kernel, ops/agc.py::agc_signal) replaces the
+// dataset's AGC, pitchvis_tpu/train/device_dataset.py::agc_signal_device and
+// the scan inside _render_agc_jit (lax.scans of agc_chunk over the chunks of
+// a whole signal, not Pallas). One warp a row runs agc_row over the row's C
+// chunks in order, each with its own freeze, carries the gain from chunk to
+// chunk in lane 0's register and writes the gain after each chunk: one launch
+// for all chunks of every row, where the chunk mode would take one a chunk.
+// Bound on this card: latency. The bytes are 8 a sample (10.6 MB for a
+// 60-second file, about 3 us at 3.35 TB/s), but the recurrence is one chain
+// of six dependent float operations a sample (fmul, fmul, fma, fma, max,
+// fmul) through the gain, 1.33 M samples long for that file: some tens of
+// milliseconds whatever the kernel does, unless rows are batched (B rows run
+// side by side, one a block).
 //
 // Rounding follows the JAX package's CPU scan bit for bit: XLA contracts
 // 1 - y*c and 1 + k*(1 - y) into two fused multiply-adds, so the kernel spells
@@ -88,14 +103,19 @@ __device__ __forceinline__ void copy_row(float* __restrict__ dst, const float* _
 
 // Warp 0: the freeze and the recurrence over x[0:T], written to y[0:T];
 // returns the new gain in lane 0.
+// frozen_in: 0 or 1 as the caller gives it, or -1 for the silence freeze.
 __device__ __forceinline__ float agc_row(const float* __restrict__ x, float* __restrict__ y, float* tile,
-                                         int T, float g, float k, float inv_rms, float silence) {
+                                         int T, float g, float k, float inv_rms, float silence,
+                                         int frozen_in) {
   const int lane = threadIdx.x & 31;
-  float energy = 0.f;
-  for (int i = lane; i < T; i += 32) energy = __fadd_rn(energy, __fmul_rn(x[i], x[i]));
+  bool frozen = frozen_in > 0;
+  if (frozen_in < 0) {
+    float energy = 0.f;
+    for (int i = lane; i < T; i += 32) energy = __fadd_rn(energy, __fmul_rn(x[i], x[i]));
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) energy = __fadd_rn(energy, __shfl_xor_sync(0xffffffffu, energy, off));
-  const bool frozen = energy < silence;
+    for (int off = 16; off > 0; off >>= 1) energy = __fadd_rn(energy, __shfl_xor_sync(0xffffffffu, energy, off));
+    frozen = energy < silence;
+  }
 
   for (int base = 0; base < T; base += kTile) {
     const int n = min(kTile, T - base);
@@ -124,7 +144,8 @@ template <bool RING>
 __global__ void __launch_bounds__(RING ? kRingThreads : 32)
 ring_push_kernel(const float* __restrict__ chunk, int64_t chunk_stride, const float* __restrict__ gain_in,
                  const float* __restrict__ buffer, int64_t buffer_stride, float* __restrict__ out,
-                 float* __restrict__ gain_out, int L, int T, float k, float inv_rms, float silence) {
+                 float* __restrict__ gain_out, const uint8_t* __restrict__ frozen, int L, int T, float k,
+                 float inv_rms, float silence) {
   __shared__ float tile[kTile];
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -145,8 +166,24 @@ ring_push_kernel(const float* __restrict__ chunk, int64_t chunk_stride, const fl
       return;
     }
   }
-  const float g = agc_row(x, row + (L - T), tile, T, gain_in[b], k, inv_rms, silence);
+  const float g = agc_row(x, row + (L - T), tile, T, gain_in[b], k, inv_rms, silence, frozen ? frozen[b] : -1);
   if (tid == 0) gain_out[b] = g;
+}
+
+// Signal mode: row b of x holds C chunks of T samples; y is (B, C * T) and
+// gains (B, C). The gain starts at 1.
+__global__ void __launch_bounds__(32)
+agc_signal_kernel(const float* __restrict__ x, int64_t x_stride, float* __restrict__ y, float* __restrict__ gains,
+                  int C, int T, float k, float inv_rms, float silence) {
+  __shared__ float tile[kTile];
+  const int b = blockIdx.x;
+  const float* xr = x + (int64_t)b * x_stride;
+  float* yr = y + (int64_t)b * C * T;
+  float g = 1.f;  // lane 0's is the gain; the other lanes' copies are not read
+  for (int c = 0; c < C; ++c) {
+    g = agc_row(xr + (int64_t)c * T, yr + (int64_t)c * T, tile, T, g, k, inv_rms, silence, -1);
+    if (threadIdx.x == 0) gains[(int64_t)b * C + c] = g;
+  }
 }
 
 extern "C" int agc_ring_push_f32(const float* buffer, long long buffer_stride, const float* gain,
@@ -154,14 +191,21 @@ extern "C" int agc_ring_push_f32(const float* buffer, long long buffer_stride, c
                                  float* new_gain, int B, int L, int T, float k, float inv_rms,
                                  float silence, void* stream) {
   ring_push_kernel<true><<<B, kRingThreads, 0, (cudaStream_t)stream>>>(
-      chunk, chunk_stride, gain, buffer, buffer_stride, new_buffer, new_gain, L, T, k, inv_rms, silence);
+      chunk, chunk_stride, gain, buffer, buffer_stride, new_buffer, new_gain, nullptr, L, T, k, inv_rms, silence);
   return (int)cudaGetLastError();
 }
 
-extern "C" int agc_chunk_f32(const float* chunk, long long chunk_stride, const float* gain, float* out,
-                             float* gain_out, int B, int T, float k, float inv_rms, float silence,
-                             void* stream) {
+// frozen: (B,) bytes, or null for the silence freeze.
+extern "C" int agc_chunk_f32(const float* chunk, long long chunk_stride, const float* gain,
+                             const uint8_t* frozen, float* out, float* gain_out, int B, int T, float k,
+                             float inv_rms, float silence, void* stream) {
   ring_push_kernel<false><<<B, 32, 0, (cudaStream_t)stream>>>(
-      chunk, chunk_stride, gain, nullptr, 0, out, gain_out, T, T, k, inv_rms, silence);
+      chunk, chunk_stride, gain, nullptr, 0, out, gain_out, frozen, T, T, k, inv_rms, silence);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int agc_signal_f32(const float* x, long long x_stride, float* y, float* gains, int B, int C, int T,
+                              float k, float inv_rms, float silence, void* stream) {
+  agc_signal_kernel<<<B, 32, 0, (cudaStream_t)stream>>>(x, x_stride, y, gains, C, T, k, inv_rms, silence);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
 // Native host runtime for pitchvis_tpu_torch: the ingest side of the
-// serving runtime (runtime/server.py), a copy of the ring bank, resampler
-// bank and AGC of the JAX package's native/pitchvis_native.cpp.
+// serving runtime (runtime/server.py) and the training synthesizer's voice
+// loop, a copy of the JAX package's native/pitchvis_native.cpp.
 //
 // The card does the math; this library is the host-side serving runtime
 // around it, the C++ counterpart of the reference's audio-thread machinery
@@ -15,7 +15,11 @@
 //  * pv_rs_*   — per-stream streaming polyphase resamplers (44.1/48 kHz
 //                producers to the server rate).
 //  * pv_agc_*  — the dagc gain recurrence (dagc_fork/src/lib.rs:76-87) as a
-//                tight scalar loop.
+//                tight scalar loop (the serving ingest and the host route of
+//                dataset generation, train/dataset.py).
+//  * pv_synth_render — additive-harmonic voice mixing with ADSR envelopes
+//                (the render hot loop of the training synthesizer,
+//                synth/synthesizer.py).
 //
 // Build: utils/host_build.py (g++ -O3 -march=native -fPIC -std=c++17
 // -shared) at first use. Exposed via ctypes (runtime/native.py); every
@@ -470,6 +474,63 @@ float pv_agc_process(float gain, float* samples, int64_t n, float desired_rms,
     }
   }
   return gain;
+}
+
+// ---------------------------------------------------------------------------
+// Synth voice render kernel
+// ---------------------------------------------------------------------------
+
+// Renders n samples of `n_voices` additive voices into mix[n] (accumulating)
+// and writes each voice's end-of-chunk envelope gain into gains_out.
+//
+// Per voice inputs (arrays of length n_voices):
+//   freq, phase (radians, updated in place), age (seconds, updated),
+//   released_at (<0 = not released), amp (velocity * master),
+//   attack, decay, sustain, release,
+//   harmonics: [n_voices * n_harm] amplitude table.
+void pv_synth_render(float* mix, int64_t n, double sample_rate, int64_t n_voices,
+                     const double* freq, double* phase, double* age,
+                     const double* released_at, const double* amp,
+                     const double* attack, const double* decay,
+                     const double* sustain, const double* release,
+                     const double* harmonics, int64_t n_harm, double* gains_out) {
+  const double nyq = sample_rate / 2.0;
+  const double dt = 1.0 / sample_rate;
+  for (int64_t v = 0; v < n_voices; ++v) {
+    const double f = freq[v];
+    const double a0 = age[v];
+    const double rel = released_at[v];
+    double env_last = 0.0;
+    for (int64_t i = 0; i < n; ++i) {
+      const double t = a0 + i * dt;
+      double env;
+      if (t < attack[v]) {
+        env = t / (attack[v] > 1e-5 ? attack[v] : 1e-5);
+      } else if (t < attack[v] + decay[v]) {
+        env = 1.0 - (1.0 - sustain[v]) * (t - attack[v]) / (decay[v] > 1e-5 ? decay[v] : 1e-5);
+      } else {
+        env = sustain[v];
+      }
+      if (rel >= 0.0 && t > rel) {
+        double tr = (t - rel) / (release[v] > 1e-5 ? release[v] : 1e-5);
+        env *= tr < 1.0 ? (1.0 - tr) : 0.0;
+      }
+      double wave = 0.0;
+      const double base = phase[v] + 2.0 * M_PI * f * i * dt;
+      for (int64_t h = 0; h < n_harm; ++h) {
+        const double fh = f * (h + 1);
+        if (fh >= nyq) break;
+        const double ah = harmonics[v * n_harm + h];
+        if (ah == 0.0) continue;
+        wave += ah * std::sin(base * (h + 1));
+      }
+      mix[i] += (float)(amp[v] * env * wave);
+      env_last = env;
+    }
+    phase[v] = std::fmod(phase[v] + 2.0 * M_PI * f * n * dt, 2.0 * M_PI);
+    age[v] = a0 + n * dt;
+    gains_out[v] = amp[v] * env_last;
+  }
 }
 
 }  // extern "C"

@@ -2,12 +2,15 @@
 (``pitchvis_tpu_torch/native/pitchvis_native.cpp``).
 
 A port of ``pitchvis_tpu/runtime/native.py`` over the port's own copy of
-the C++ source: the ring bank, the resampler bank and the standalone AGC.
-The library is built at first use (utils/host_build.py: g++ under a
-cross-process lock, into ``build/pitchvis_tpu_torch/``) and its function
-signatures are bound once, at load. There is no fallback: if the library
-cannot be built or loaded, every constructor here raises, and so does the
-server that stands on them.
+the C++ source: the ring bank, the resampler bank, the standalone AGC and
+the additive synthesizer's voice loop (``pitchvis_native.cpp``), and the
+SoundFont engine (``synth_engine.cpp``, a library of its own:
+:func:`load_synth`). Each library is built at first use
+(utils/host_build.py: g++ under a cross-process lock, into
+``build/pitchvis_tpu_torch/``) and its function signatures are bound once,
+at load. There is no fallback: if a library cannot be built or loaded,
+every constructor here raises, and so does the server or the dataset
+generator that stands on them.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from ..ops.resample import _design_prototype, make_spec
 from ..utils import host_build
 
 _lib = None
+_synth_lib = None
 _lock = threading.Lock()
 
 _f32p = ctypes.POINTER(ctypes.c_float)
@@ -28,7 +32,9 @@ _f64p = ctypes.POINTER(ctypes.c_double)
 _i64p = ctypes.POINTER(ctypes.c_int64)
 _u64p = ctypes.POINTER(ctypes.c_uint64)
 _u8p = ctypes.POINTER(ctypes.c_uint8)
-_void, _i32, _i64, _f32 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_float
+_i16p = ctypes.POINTER(ctypes.c_int16)
+_i32p = ctypes.POINTER(ctypes.c_int32)
+_void, _i32, _i64, _f32, _f64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_float, ctypes.c_double
 
 # name -> (restype, argtypes)
 _SIGNATURES = {
@@ -51,26 +57,61 @@ _SIGNATURES = {
     "pv_rs_reset": (None, [_void, _i64]),
     "pv_rs_process": (_i64, [_void, _i64, _f32p, _i64, _f32p, _i64]),
     "pv_agc_process": (_f32, [_f32, _f32p, _i64, _f32, _f32, _i32]),
+    "pv_synth_render": (None, [_f32p, _i64, _f64, _i64] + [_f64p] * 10 + [_i64, _f64p]),
+}
+
+# the SoundFont engine (synth_engine.cpp)
+_SYNTH_SIGNATURES = {
+    "pv_engine_create": (_void, [_i16p, _i64, _i16p, _i32p, _i64, _i32p, _i64, _i16p, _i32p, _i64,
+                                 _i32p, _i64, _i32, _i32, _i32, _i32]),
+    "pv_engine_destroy": (None, [_void]),
+    "pv_engine_reset": (None, [_void]),
+    "pv_engine_midi": (None, [_void] + [_i32] * 4),
+    "pv_engine_note_on": (None, [_void] + [_i32] * 3),
+    "pv_engine_note_off": (None, [_void] + [_i32] * 2),
+    "pv_engine_render": (None, [_void, _f32p, _f32p, _i64]),
+    "pv_engine_active_voices": (_i32, [_void, _i32p, _f32p, _f32p, _i32]),
+    "pv_seq_create": (_void, [_void, _f64p, _i32p, _i32p, _i32p, _i32p, _i64]),
+    "pv_seq_destroy": (None, [_void]),
+    "pv_seq_render": (None, [_void, _f32p, _f32p, _i64]),
+    "pv_train_synthesize": (_i64, [_void, _i64, _i64, _i32, _f32, _f32, _f32p, _i32p, _f32p, _i32p,
+                                   _i64, _i32]),
 }
 
 
+def _load_bound(name: str, signatures: dict) -> ctypes.CDLL:
+    path = host_build.library_path(name)
+    try:
+        lib = ctypes.CDLL(path)
+    except OSError as e:
+        raise RuntimeError(f"cannot load the native library {path}: {e}") from e
+    for fn_name, (restype, argtypes) in signatures.items():
+        fn = getattr(lib, fn_name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return lib
+
+
 def load() -> ctypes.CDLL:
-    """The bound library, built at first use. Raises RuntimeError when it
-    cannot be built or loaded."""
+    """The bound ingest library (pitchvis_native.cpp), built at first use.
+    Raises RuntimeError when it cannot be built or loaded."""
     global _lib
     with _lock:
         if _lib is None:
-            path = host_build.library_path("pitchvis_native")
-            try:
-                lib = ctypes.CDLL(path)
-            except OSError as e:
-                raise RuntimeError(f"cannot load the native ingest library {path}: {e}") from e
-            for name, (restype, argtypes) in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.restype = restype
-                fn.argtypes = argtypes
-            _lib = lib
+            _lib = _load_bound("pitchvis_native", _SIGNATURES)
         return _lib
+
+
+def load_synth() -> ctypes.CDLL:
+    """The bound SoundFont engine (synth_engine.cpp), built at first use.
+    Raises RuntimeError when it cannot be built or loaded. ctypes releases
+    the interpreter lock for the length of each call, so engines on several
+    threads render at once (train/dataset.py::_generate_dataset_parallel)."""
+    global _synth_lib
+    with _lock:
+        if _synth_lib is None:
+            _synth_lib = _load_bound("synth_engine", _SYNTH_SIGNATURES)
+        return _synth_lib
 
 
 def _fptr(a: np.ndarray):
@@ -281,3 +322,32 @@ def agc_process(gain: float, samples: np.ndarray, desired_rms: float,
     return float(
         load().pv_agc_process(gain, _fptr(samples), len(samples), desired_rms, distortion, int(frozen))
     )
+
+
+def _dptr(a: np.ndarray):
+    return a.ctypes.data_as(_f64p)
+
+
+def synth_render(mix: np.ndarray, sample_rate: float, freq, phase, age,
+                 released_at, amp, attack, decay, sustain, release,
+                 harmonics) -> np.ndarray:
+    """Native additive-voice render; mutates mix/phase/age in place, returns
+    per-voice end-of-chunk gains. mix is float32 and every per-voice array
+    float64, all C-contiguous (the native loop writes through them)."""
+    n_voices = len(freq)
+    gains = np.zeros(n_voices, np.float64)
+    if n_voices == 0:
+        return gains
+    per_voice = (freq, phase, age, released_at, amp, attack, decay, sustain, release)
+    if mix.dtype != np.float32 or not mix.flags.c_contiguous:
+        raise ValueError("mix must be a C-contiguous float32 array")
+    if any(a.dtype != np.float64 or a.shape != (n_voices,) or not a.flags.c_contiguous for a in per_voice):
+        raise ValueError(f"per-voice arrays must be C-contiguous float64 ({n_voices},)")
+    harmonics = np.ascontiguousarray(harmonics, np.float64)
+    if harmonics.ndim != 2 or harmonics.shape[0] != n_voices:
+        raise ValueError(f"harmonics must be ({n_voices}, n_harm), got {harmonics.shape}")
+    load().pv_synth_render(
+        _fptr(mix), len(mix), sample_rate, n_voices, *(_dptr(a) for a in per_voice),
+        _dptr(harmonics), harmonics.shape[1], _dptr(gains),
+    )
+    return gains

@@ -36,7 +36,7 @@ def host_compiler() -> str:
     if path is None:
         raise RuntimeError(
             "g++ not found: pitchvis_tpu_torch builds its "
-            "native ingest library from source at first use"
+            "native libraries from source at first use"
         )
     return path
 

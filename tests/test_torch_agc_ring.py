@@ -3,26 +3,32 @@
 XLA on the CPU contracts the AGC update into two fused multiply-adds; the
 port's plain version computes exactly those (ops/agc.py::fma_f32) and its
 CUDA kernel calls __fmaf_rn, so gains and samples agree exactly. The
-kernel's ring mode (one launch a push) runs only on the card; here a NumPy
-emulation of its decomposition is held to the plain version, and its
-wrapper's checks run before any library is loaded."""
+kernel's ring and signal modes (one launch a push, one launch a batch of
+signals) run only on the card; here NumPy emulations of their
+decompositions are held to the plain versions, and the wrappers' checks run
+before any library is loaded."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import jax
+
 from pitchvis_tpu.ops.agc import agc_chunk as jax_agc_chunk
+from pitchvis_tpu.ops.agc import agc_init as jax_agc_init
+from pitchvis_tpu.train import device_dataset as jax_dd
 from pitchvis_tpu.stream.ring import RingState as JRing
 from pitchvis_tpu.stream.ring import ring_push as jax_ring_push
 from pitchvis_tpu.stream.ring import ring_window as jax_ring_window
 from pitchvis_tpu_torch.core.config import AgcParameters
 from pitchvis_tpu_torch.ops import agc
-from pitchvis_tpu_torch.ops.agc import agc_chunk, agc_ring_push, fma_f32
+from pitchvis_tpu_torch.ops.agc import agc_chunk, agc_init, agc_ring_push, agc_signal, agc_signal_plain, fma_f32
+from pitchvis_tpu_torch.train.device_dataset import TRAIN_AGC, agc_signal_device
 from pitchvis_tpu_torch.stream.ring import RingState, ring_push, ring_push_plain, ring_window
 from pitchvis_tpu_torch.utils import nvcc
 
-from torch_port_helpers import ring_push_kernel_emulation
+from torch_port_helpers import agc_signal_kernel_emulation, ring_push_kernel_emulation
 
 
 def _bits(a):
@@ -185,3 +191,124 @@ def test_ring_kernel_wrapper_checks_before_loading(case, monkeypatch):
     with pytest.raises(error):
         agc_ring_push(buffer, gain, chunk)
     assert agc.launches == before
+
+
+def test_agc_chunk_frozen_and_init_match_jax():
+    """agc_chunk(frozen=) (the caller's flags instead of the energy's: a
+    silent row unfrozen, a loud one frozen) and agc_init, bit for bit."""
+    rng = np.random.default_rng(4)
+    ch = _chunk(rng, 6, 200)
+    ch[2] = 0.0
+    frozen = np.array([True, False, False, True, False, True])
+    g0 = rng.uniform(0.5, 2.0, 6).astype(np.float32)
+    p = AgcParameters(desired_output_rms=0.07, distortion_factor=0.001)
+    jg, jout = jax_agc_chunk(jnp.asarray(g0), jnp.asarray(ch), p, frozen=jnp.asarray(frozen))
+    tg, tout = agc_chunk(torch.from_numpy(g0), torch.from_numpy(ch), p, frozen=torch.from_numpy(frozen))
+    np.testing.assert_array_equal(_bits(tg.numpy()), _bits(jg))
+    np.testing.assert_array_equal(_bits(tout.numpy()), _bits(jout))
+    np.testing.assert_array_equal(tg.numpy()[frozen], g0[frozen])
+    assert tg[2] != g0[2]  # silent but not frozen: the gain moves
+    init = agc_init(5, device="cpu")
+    assert init.dtype == torch.float32 and init.device.type == "cpu"
+    np.testing.assert_array_equal(init.numpy(), np.asarray(jax_agc_init(5)))
+
+
+def _signal(rng, b, n_chunks, chunk, tail=0):
+    """(B, C * chunk + tail) seeded audio with silent chunks in the middle
+    and a chunk of energy just under the 1e-6 freeze."""
+    x = _chunk(rng, b, n_chunks * chunk + tail)
+    x[0, 2 * chunk : 4 * chunk] = 0.0
+    if b > 1:
+        seg = x[1, chunk : 2 * chunk].astype(np.float64)
+        x[1, chunk : 2 * chunk] = (seg * np.sqrt(0.99e-6 / (seg**2).sum())).astype(np.float32)
+    return x
+
+
+def _jax_signal_scan(x, chunk):
+    """The JAX package's dataset AGC, _render_agc_jit's scan over a given
+    signal: (processed, gains after each chunk), compiled as there."""
+    @jax.jit
+    def run(sig):
+        def step(gain, c):
+            g, out = jax_agc_chunk(gain, c, jax_dd.TRAIN_AGC, frozen=None)
+            return g, (out, g)
+
+        _, (outs, gains) = jax.lax.scan(step, jnp.ones(1, jnp.float32), sig.reshape(-1, 1, chunk))
+        return outs.reshape(-1), gains[:, 0]
+
+    n = x.shape[0] // chunk * chunk
+    return run(jnp.asarray(x[:n]))
+
+
+def test_agc_signal_plain_matches_jax():
+    """agc_signal_plain (the signal mode's plain version, a loop over chunks
+    of agc_chunk_plain) against the JAX package's dataset AGC on each row, bit
+    for bit, gains included: agc_signal_device, and the scan of
+    _render_agc_jit; the ragged tail is dropped as there."""
+    rng = np.random.default_rng(5)
+    chunk = 160
+    x = _signal(rng, 2, 9, chunk, tail=37)
+    out, gains = agc_signal_plain(torch.from_numpy(x), chunk, TRAIN_AGC)
+    assert out.shape == (2, 9 * chunk) and gains.shape == (2, 9)
+    for row in range(2):
+        jout, jgains = _jax_signal_scan(x[row], chunk)
+        np.testing.assert_array_equal(_bits(out[row].numpy()), _bits(jout), err_msg=f"row {row}")
+        np.testing.assert_array_equal(_bits(gains[row].numpy()), _bits(jgains), err_msg=f"row {row}")
+        np.testing.assert_array_equal(_bits(out[row].numpy()),
+                                      _bits(jax_dd.agc_signal_device(jnp.asarray(x[row]), chunk)))
+        np.testing.assert_array_equal(agc_signal_device(torch.from_numpy(x[row]), chunk).numpy(), out[row].numpy())
+    assert gains[0, 2] == gains[0, 1] and gains[0, 3] == gains[0, 1]  # silent chunks keep the gain
+    assert gains[1, 1] == gains[1, 0]  # energy 0.99e-6: frozen
+
+
+def test_agc_signal_kernel_emulation_matches_plain():
+    """The signal mode's per-row decomposition (a warp's strided energy and
+    butterfly a chunk, lane 0's recurrence with the gain carried) emulated
+    in NumPy equals the plain version, silent and just-under-threshold
+    chunks included."""
+    rng = np.random.default_rng(6)
+    chunk = 96
+    x = _signal(rng, 3, 7, chunk, tail=5)
+    k, inv_rms = agc._constants(TRAIN_AGC)
+    want_out, want_gains = agc_signal_plain(torch.from_numpy(x), chunk, TRAIN_AGC)
+    got_out, got_gains = agc_signal_kernel_emulation(x, chunk, k, inv_rms, agc.SILENCE_ENERGY)
+    np.testing.assert_array_equal(_bits(got_out), _bits(want_out.numpy()))
+    np.testing.assert_array_equal(_bits(got_gains), _bits(want_gains.numpy()))
+
+
+@pytest.mark.parametrize("shape", [(0, 500), (3, 99), (2, 100)])
+def test_agc_signal_plain_edges(shape):
+    """The empty batch, fewer samples than a chunk (no chunk) and exactly one
+    chunk."""
+    x = torch.from_numpy(_chunk(np.random.default_rng(7), *shape)) if shape[0] else torch.zeros(shape)
+    out, gains = agc_signal(x, 100, TRAIN_AGC)
+    n_chunks = shape[1] // 100
+    assert out.shape == (shape[0], n_chunks * 100) and gains.shape == (shape[0], n_chunks)
+    if shape[0] and n_chunks:
+        g, o = agc_chunk(torch.ones(shape[0]), x[:, :100], TRAIN_AGC)
+        assert torch.equal(o, out) and torch.equal(g, gains[:, 0])
+
+
+SIGNAL_CASES = {
+    "float64 signal": (TypeError, lambda: _meta(2, 300).double()),
+    "signal not 2-D": (ValueError, lambda: _meta(300)),
+    "chunk < 1": (ValueError, lambda: _meta(2, 300)),
+    "not a CUDA tensor": (ValueError, lambda: _meta(2, 300)),
+}
+
+
+@pytest.mark.parametrize("case", list(SIGNAL_CASES))
+def test_signal_kernel_wrapper_checks_before_loading(case, monkeypatch):
+    """agc_signal raises on what the kernel does not take before it builds
+    or loads any library; a CPU tensor takes the plain version and counts no
+    launch."""
+    def no_library(name):
+        raise AssertionError(f"library {name!r} loaded")
+
+    monkeypatch.setattr(nvcc, "library", no_library)
+    error, make = SIGNAL_CASES[case]
+    before = agc.signal_launches
+    with pytest.raises(error):
+        agc_signal(make(), 0 if case == "chunk < 1" else 100, TRAIN_AGC)
+    agc_signal(torch.zeros(2, 300), 100, TRAIN_AGC)
+    assert agc.signal_launches == before

@@ -14,7 +14,11 @@ import pitchvis_tpu_torch as pt
 from pitchvis_tpu_torch.models.pitch_mlp import PitchMLP
 from pitchvis_tpu_torch.models.render import RenderConfig, make_scene, render_streams
 from pitchvis_tpu_torch.ops import agc, composite, peaks_pallas, vqt_pallas
+from pitchvis_tpu_torch.train.corpus import train_demo
+from pitchvis_tpu_torch.train.dataset import generate_dataset
+from pitchvis_tpu_torch.train.device_dataset import generate_dataset_device, render_schedule_device, schedule_from_midi
 from pitchvis_tpu_torch.train.train import TrainConfig, train
+from pitchvis_tpu_torch.synth.midi import MidiFile
 
 from conftest import SMALL_PARAMS
 from torch_port_helpers import to_port
@@ -46,7 +50,9 @@ def test_port_files_found():
     assert len(files) > 15
     assert any(f.endswith("chip_smoke.py") for f in files)
     for module in ("models/pitch_mlp.py", "models/ml_system.py", "train/train.py", "models/render.py",
-                   "models/glyph_atlas.py", "ops/composite.py"):
+                   "models/glyph_atlas.py", "ops/composite.py", "synth/midi.py", "synth/sf2.py", "synth/engine.py",
+                   "synth/synthesizer.py", "synth/engine_native.py", "train/dataset.py", "train/device_dataset.py",
+                   "train/logistic.py", "train/corpus.py"):
         assert os.path.join(ROOT, "pitchvis_tpu_torch", module) in files, module
 
 
@@ -56,13 +62,24 @@ def test_no_jax_imports(path):
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
-@pytest.mark.parametrize("entry", ["pipeline", "vqt", "arrays", "server", "train", "model", "render"])
-def test_entry_points_raise_without_cuda(entry, monkeypatch):
+@pytest.mark.parametrize("entry", ["pipeline", "vqt", "arrays", "server", "train", "model", "render", "dataset",
+                                   "device_dataset", "render_schedule", "train_demo", "agc_init"])
+def test_entry_points_raise_without_cuda(entry, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     params = to_port(SMALL_PARAMS)
     with pytest.raises(RuntimeError, match="CUDA"):
         if entry == "train":
             train(np.zeros((8, 8 + 128), np.float32), TrainConfig(n_buckets=8, t_window=2, mlp_size=8, epochs=1))
+        elif entry == "dataset":
+            generate_dataset([], params)
+        elif entry == "device_dataset":
+            generate_dataset_device([], params)
+        elif entry == "render_schedule":
+            render_schedule_device(schedule_from_midi(MidiFile(events=[], length=0.0), 1.0), 64, 22050.0)
+        elif entry == "train_demo":
+            train_demo(out_dir=str(tmp_path), n_files=1, seconds_per_file=1.0, epochs=1)
+        elif entry == "agc_init":
+            agc.agc_init(4)
         elif entry == "render":
             make_scene(RenderConfig(width=32, height=24), params.range)
         elif entry == "model":
@@ -79,8 +96,8 @@ def test_entry_points_raise_without_cuda(entry, monkeypatch):
 
 def test_cpu_wrappers_take_the_plain_versions():
     """On CPU tensors the kernels' wrappers run their plain versions and
-    count no launch, a render included."""
-    before = (agc.launches, peaks_pallas.launches, vqt_pallas.launches, composite.launches)
+    count no launch, a render and the AGC's signal mode included."""
+    before = (agc.launches, agc.signal_launches, peaks_pallas.launches, vqt_pallas.launches, composite.launches)
     params = to_port(SMALL_PARAMS)
     pipe = pt.StreamingPipeline(2, params, path="pallas", fast=True, with_viewer=True, device="cpu")
     out = pipe.step(torch.zeros(2, 367), 367 / 22050)
@@ -88,4 +105,6 @@ def test_cpu_wrappers_take_the_plain_versions():
     frames = render_streams(RenderConfig(width=64, height=36, ball_patch=16, max_balls=8), params.range, out.viewer,
                             out.analysis.scene_calmness, 0.0, streams=range(2))
     assert frames.shape == (2, 36, 64, 3) and frames.dtype == torch.uint8
-    assert (agc.launches, peaks_pallas.launches, vqt_pallas.launches, composite.launches) == before
+    processed, gains = agc.agc_signal(torch.full((2, 250), 0.1), 100)
+    assert processed.shape == (2, 200) and gains.shape == (2, 2)
+    assert (agc.launches, agc.signal_launches, peaks_pallas.launches, vqt_pallas.launches, composite.launches) == before

@@ -2,7 +2,9 @@
 pitchvis_tpu: parameter conversion between the two packages' (identical)
 config dataclasses, seeded input signals, made with NumPy so both packages
 see the same bits, and a fixture that makes the JAX package's native
-library safe to load from several test workers at once."""
+library safe to load from several test workers at once (the checkout's
+conftest.py builds it under the same lock before any module is
+collected)."""
 
 from __future__ import annotations
 
@@ -342,3 +344,39 @@ def jax_native_lib():
             time.sleep(1.0)
     assert jax_native._lib is not None, "native/libpitchvis_native.so did not build or load"
     return jax_native
+
+
+def agc_signal_kernel_emulation(signal, chunk, k, inv_rms, silence):
+    """NumPy emulation, row by row, of the signal mode of
+    pitchvis_tpu_torch/csrc/agc.cu (the kernel itself only runs on a CUDA
+    card): one warp a row walks the row's chunks in order; for each chunk the
+    warp's 32 lanes sum the pre-gain energy over strided samples and an xor
+    butterfly, then lane 0 runs the recurrence with the gain carried from the
+    previous chunk (1 before the first) and writes the gain after the chunk.
+    Returns ((B, C * chunk) processed, (B, C) gains)."""
+    signal = np.asarray(signal, np.float32)
+    b_rows, n = signal.shape
+    n_chunks = n // chunk
+    out = np.zeros((b_rows, n_chunks * chunk), np.float32)
+    gains = np.zeros((b_rows, n_chunks), np.float32)
+    k32 = np.float32(k)
+    for b in range(b_rows):
+        g = np.float32(1.0)
+        for c in range(n_chunks):
+            x = signal[b, c * chunk : (c + 1) * chunk]
+            lanes = np.zeros(32, np.float32)
+            for lane in range(32):
+                for v in x[lane::32]:
+                    lanes[lane] = np.float32(lanes[lane] + np.float32(v * v))
+            for off in (16, 8, 4, 2, 1):
+                lanes = (lanes + lanes[np.arange(32) ^ off]).astype(np.float32)
+            frozen = bool(lanes[0] < np.float32(silence))
+            for t in range(chunk):
+                o = np.float32(x[t] * g)
+                out[b, c * chunk + t] = o
+                upd = _fma32(_fma32(-np.float32(o * o), inv_rms, 1.0), k, 1.0)
+                upd = upd if (upd >= k32 or upd != upd) else k32
+                if not frozen:
+                    g = np.float32(g * upd)
+            gains[b, c] = g
+    return out, gains
