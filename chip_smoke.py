@@ -131,15 +131,32 @@ toolkit (nvcc). Phases, each of which fails the run on any error:
    file without a font (tests/test_device_dataset.py's criteria); the device
    route on the card against the CPU on 3 s; and train_demo(8 files of 60 s,
    1 epoch) end to end, with a train step on its rows.
+10. runs the command line, pitchvis_tpu_torch/demo.py: a 60-second 44100 Hz
+   WAV (the chain signals' arpeggio, chord and chirp, written by the port's
+   save_wav under build/cli_phase/, deleted after) resampled on the card and
+   run in process through ``--path pallas --fast --led`` and ``--path
+   pallas`` (f32, 588 bins): hops, wall seconds, realtime factor, median
+   hop, the resample's ms, the kernels launched once a hop (peaks twice)
+   and none of their plain versions called; its first 3 s with ``--device
+   cpu`` against the card at the chain budget of
+   tests/test_torch_outputs.py; ``--serve --input-sr 48000 --pipelined
+   --led`` and ``--serve --loop --hops-per-dispatch 4`` as subprocesses fed
+   3 s of f32 tone (one summary line a hop, A4 found); ``--render`` of 1 s
+   at 640x360 with the debug overlay (30 PNGs, two composites a frame, no
+   frame of one colour); and Vqt(path="freq") at B=2048 in f32 (within 3e-4
+   dB of the oracle and of the time path on 8 frames, power within rtol
+   1e-5 of the CPU) and bf16 (power within rtol 1e-3 of the CPU; its dB
+   error to the oracle printed), beside the time and pallas paths' ms.
 
 It prints a JSON line of the VQT's times by part, one of the analysis step's
 launches and times, one of the output stages' numbers, one of the ML phase's
 (``ml_stage``), one of the rasterizer's (``render``), one of per-kernel
 numbers (``launches`` summed over the pipeline's, the server's, the
 output-stage pipeline's, the ML pipeline's and server's and the render
-path's measured hops and batches, ``launches_by_path`` each; the
-``agc_signal`` entry's over the device route's files), one of the dataset
-phase's (``dataset``), then the
+path's measured hops and batches and the command line's in-process runs,
+``launches_by_path`` each; the ``agc_signal`` entry's over the device
+route's files), one of the dataset phase's (``dataset``), one of the
+command line's (``cli``), then the
 nvidia-smi line, and as its last line ``{"ok": true, "device": {...}}``.
 Without CUDA it exits 1 and prints no result.
 """
@@ -2052,6 +2069,331 @@ def dataset_phase(torch, counts, reset_counts) -> tuple[dict, dict]:
     return entry, numbers
 
 
+CLI_SECONDS = 60.0  # phase 10 (a): the 44100 Hz WAV file the CLI reads
+CLI_CARD_CPU_SECONDS = 3.0  # phase 10 (b): its first seconds, on the card and on the CPU
+LIVE_SECONDS = 3.0  # phase 10 (c): f32 tone at 48000 Hz on the live CLI's stdin
+FREQ_FRAMES = 8  # phase 10 (e): frames held against the oracle, the time path and the CPU
+# the chain budget of tests/test_torch_outputs.py::_check_chain: peak flips
+# in at most 2e-4 of the bins, LED values within 4 where no peak flips
+CHAIN_FLIP_SHARE = 2e-4
+CHAIN_LED_STEPS = 4
+CHAIN_CALM_TOL = 0.02
+# the bf16 freq path on the card against itself on the CPU: the tolerance
+# tests/test_torch_vqt_freq.py holds it to against the JAX package (power
+# rtol 1e-3 plus 1e-6 of the frame's peak power)
+FREQ_BF16_RTOL = 1e-3
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Counts calls of the kernels' plain versions while the block runs (a
+    CUDA tensor must never reach one): yields a dict name -> calls."""
+    from pitchvis_tpu_torch.ops import agc, composite, peaks_pallas, vqt_pallas
+    from pitchvis_tpu_torch.stream import ring
+
+    targets = [(vqt_pallas, "vqt_power_pallas_plain"), (peaks_pallas, "find_peaks_masks_plain"),
+               (peaks_pallas, "local_maxima_and_prominences_plain"), (agc, "agc_chunk_plain"),
+               (agc, "agc_signal_plain"), (ring, "ring_push_plain"), (composite, "composite_patches_plain")]
+    calls = {name: 0 for _, name in targets}
+    saved = []
+    for mod, name in targets:
+        fn = getattr(mod, name)
+
+        def counted(*args, _fn=fn, _name=name, **kwargs):
+            calls[_name] += 1
+            return _fn(*args, **kwargs)
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def run_cli(demo, argv) -> tuple[list, str, float]:
+    """demo.main(argv) in this process with its stdout and stderr captured:
+    (stdout lines, stderr, wall seconds). Fails the run on a non-zero
+    return."""
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = demo.main(argv)
+    wall = time.perf_counter() - t
+    check(rc == 0, f"demo.main({argv}) returned {rc}: {err.getvalue()[-2000:]}")
+    return out.getvalue().splitlines(), err.getvalue(), wall
+
+
+def cli_subprocess(args, stdin: bytes) -> tuple[list, str, float]:
+    """``python -m pitchvis_tpu_torch.demo args`` from the checkout's root,
+    ``stdin`` on its standard input; (stdout lines, stderr, wall seconds).
+    Fails the run on a non-zero exit; the process has ended on return."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pitchvis_tpu_torch.demo", *args], input=stdin,
+                          capture_output=True, cwd=ROOT, env=env, timeout=300)
+    wall = time.perf_counter() - t
+    err = proc.stderr.decode()
+    check(proc.returncode == 0, f"demo {' '.join(args)} exited {proc.returncode}: {err[-2000:]}")
+    return proc.stdout.decode().splitlines(), err, wall
+
+
+def led_frames(path: str, n: int) -> np.ndarray:
+    """A pitchvis_serial byte stream -> (frames, n, 3) uint8, its framing
+    checked."""
+    data = np.fromfile(path, np.uint8)
+    check(data.size % (3 + 3 * n) == 0, f"{path}: {data.size} bytes are no whole frames of {n} LEDs")
+    frames = data.reshape(-1, 3 + 3 * n)
+    check(bool((frames[:, 0] == 0xFF).all() and (frames[:, 1] == n // 256).all() and (frames[:, 2] == n % 256).all()
+               and (frames[:, 3:] <= 0xFE).all()), f"{path}: the serial framing is broken")
+    return frames[:, 3:].reshape(-1, n, 3)
+
+
+def summary_notes(line: str) -> list:
+    """The note names of an offline summary line (``... tune=...ct  A4+0ct(37.3dB), ...``)."""
+    tail = line.split("ct  ", 1)[1]
+    return [tok.split("(")[0] for tok in tail.split(", ")] if tail else []
+
+
+def cli_phase(torch, counts, reset_counts, gen) -> tuple[dict, dict]:
+    """Phase 10: the command line (pitchvis_tpu_torch/demo.py) on the card.
+    (a) a 60-second 44100 Hz WAV, resampled on the card, through
+    ``--path pallas --fast --led`` (the serial parameters, 180 bins) and
+    ``--path pallas`` (f32, default parameters, 588 bins), the kernels'
+    launches counted and their plain versions never called; (b) its first
+    3 s with ``--device cpu`` against the card, at the chain budget; (c) the
+    live CLI as a subprocess, ``--serve --input-sr 48000 --pipelined --led``
+    and ``--serve --loop --hops-per-dispatch 4`` with 3 s of f32 tone on
+    stdin; (d) ``--render`` of 1 s to a PNG directory at 640x360 with the
+    debug overlay; (e) the ``freq`` VQT path at B=2048 against the oracle,
+    the time path and the CPU, with each path's time. Writes under
+    build/cli_phase/ and deletes it. Returns (the CLI's launches by kernel
+    entry, the phase's numbers)."""
+    import re
+    import shutil
+
+    from pitchvis_tpu_torch import demo
+    from pitchvis_tpu_torch.core.config import SERIAL_VQT_PARAMETERS, VqtParameters
+    from pitchvis_tpu_torch.io.golden import chain_signals
+    from pitchvis_tpu_torch.io.png import read_png
+    from pitchvis_tpu_torch.io.wav import load_wav, save_wav
+    from pitchvis_tpu_torch.kernel.builder import get_kernel
+    from pitchvis_tpu_torch.ops import composite as comp
+    from pitchvis_tpu_torch.ops.resample import PolyphaseResampler, make_spec, resample
+    from pitchvis_tpu_torch.ops.vqt import Vqt
+    from pitchvis_tpu_torch.ops.vqt_ref import vqt_frame_db_np
+
+    numbers = {}
+    cli_launches = {"vqt_power_bf16": 0, "vqt_power_f32": 0, "peaks": 0, "agc": 0, "composite": 0}
+    work = os.path.join(ROOT, "build", "cli_phase")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t_phase = time.perf_counter()
+    try:
+        # (a) the file: arpeggio, chord and chirp of the chain signals mixed
+        # (the f64 synth clip renders about a second of audio a second, so it
+        # is left out of 60 s)
+        t = time.perf_counter()
+        sigs = chain_signals(VqtParameters(sr=44100.0), CLI_SECONDS, with_synth=False)
+        mix = (sigs["arpeggio"] + sigs["chord"] + sigs["chirp"]) / 3.0
+        wav = os.path.join(work, "chain_mix_44100.wav")
+        save_wav(wav, mix, 44100)
+        print(f"cli: wrote {CLI_SECONDS:.0f} s of arpeggio + chord + chirp at 44100 Hz, 16 bit, in "
+              f"{time.perf_counter() - t:.2f} s")
+
+        # the resample of the file on the card, and against the CPU on its first seconds
+        audio, sr = load_wav(wav)
+        resample(audio, sr, 22050)  # warm-up
+        resample_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            resample(audio, sr, 22050)
+            torch.cuda.synchronize()
+            resample_ms.append((time.perf_counter() - t) * 1e3)
+        # the tap sum alone, on the samples already on the card (CUDA events)
+        m = make_spec(sr, 22050).m
+        rs = PolyphaseResampler(sr, 22050, (len(audio) // m) * m)
+        on_card = torch.from_numpy(audio[None, : rs.chunk_in]).cuda()
+        hist = rs.init_state(1)
+        process_ms = time_ms(torch, lambda: rs.process(hist, on_card), reps=5, inner=3)
+        moved = (rs.chunk_in + rs.chunk_out) * 4 + rs._taps.numel() * 4 + rs._idx.numel() * 8
+        numbers["resample_process_ms"] = process_ms
+        numbers["resample_process_bound_ms"], _ = bound_ms(moved, 2.0 * rs._taps.numel(), F32_FLOPS)
+        del rs, on_card, hist
+        head = audio[: int(CLI_CARD_CPU_SECONDS * sr)]
+        rs_err = float(np.abs(resample(head, sr, 22050) - resample(head, sr, 22050, device="cpu")).max())
+        numbers["resample_ms"] = float(np.median(resample_ms))
+        print(f"cli: resample {len(audio)} samples 44100 -> 22050 Hz on the card (host audio in and out, "
+              f"median of 5): {numbers['resample_ms']:.3f} ms; its tap sum alone (process(), CUDA events) "
+              f"{process_ms:.3f} ms, bound {numbers['resample_process_bound_ms']:.3f} ms (bytes: samples, "
+              f"taps and indices read once); card vs CPU on {CLI_CARD_CPU_SECONDS:.0f} s: "
+              f"max |diff| {rs_err:.2e} (tol 1e-6)")
+        check(rs_err <= 1e-6, f"resample on the card {rs_err} from the CPU")
+
+        runs = {}
+        for label, argv, entry in (
+            ("bf16_led", [wav, "--path", "pallas", "--fast", "--led", os.path.join(work, "card.bin")],
+             "vqt_power_bf16"),
+            ("f32_default", [wav, "--path", "pallas"], "vqt_power_f32"),
+        ):
+            reset_counts()
+            with plain_calls() as plain:
+                lines, err, wall = run_cli(demo, argv)
+            c = counts()
+            n_hops = len(lines)
+            want = {"vqt": n_hops, "peaks": 2 * n_hops, "agc": n_hops}
+            median = re.search(r"median hop ([0-9.]+) ms", err)
+            check(median is not None, f"cli {label}: no offline summary on stderr: {err[-500:]}")
+            run = dict(hops=n_hops, wall_s=wall, realtime=CLI_SECONDS / wall, median_hop_ms=float(median.group(1)),
+                       launches=c, plain_calls=sum(plain.values()))
+            print(f"cli {label}: {json.dumps(run)}")
+            check(n_hops == int(CLI_SECONDS * 30), f"cli {label}: {n_hops} summary lines for {CLI_SECONDS} s at 30 fps")
+            check(c == want, f"cli {label}: launches {c}, expected {want}")
+            check(sum(plain.values()) == 0, f"cli {label}: a plain version ran on the card: {plain}")
+            check(sum(bool(summary_notes(line)) for line in lines) > n_hops // 2,
+                  f"cli {label}: notes in fewer than half the hops")
+            cli_launches[entry] += c["vqt"]
+            cli_launches["peaks"] += c["peaks"]
+            cli_launches["agc"] += c["agc"]
+            runs[label] = run
+        numbers["offline"] = runs
+        n_led = SERIAL_VQT_PARAMETERS.n_buckets
+        check(led_frames(os.path.join(work, "card.bin"), n_led).shape[0] == runs["bf16_led"]["hops"],
+              "cli: LED frames and hops differ")
+
+        # (b) the first seconds on the card against the CPU, the chain budget
+        head_wav = os.path.join(work, "head.wav")
+        save_wav(head_wav, mix[: int(CLI_CARD_CPU_SECONDS * 44100)], 44100)
+        out = {}
+        for device in ("cuda", "cpu"):
+            reset_counts()
+            out[device] = run_cli(demo, [head_wav, "--path", "pallas", "--fast", "--led",
+                                         os.path.join(work, f"head_{device}.bin"), "--device", device])[0]
+            if device == "cuda":
+                c = counts()
+                cli_launches["vqt_power_bf16"] += c["vqt"]
+                cli_launches["peaks"] += c["peaks"]
+                cli_launches["agc"] += c["agc"]
+        card_lines, cpu_lines = out["cuda"], out["cpu"]
+        check(len(card_lines) == len(cpu_lines) > 0, "cli: card and CPU print different numbers of lines")
+        flipped = [summary_notes(a) != summary_notes(b) for a, b in zip(card_lines, cpu_lines)]
+        same_head = all(a.split(" calm=")[0] == b.split(" calm=")[0] for a, b in zip(card_lines, cpu_lines))
+        calm = max(abs(float(a.split("calm=")[1][:4]) - float(b.split("calm=")[1][:4]))
+                   for a, b in zip(card_lines, cpu_lines))
+        led_card = led_frames(os.path.join(work, "head_cuda.bin"), n_led)
+        led_cpu = led_frames(os.path.join(work, "head_cpu.bin"), n_led)
+        keep = ~np.asarray(flipped)
+        led_diff = int(np.abs(led_card[keep].astype(np.int32) - led_cpu[keep].astype(np.int32)).max())
+        max_flips = max(1, int(CHAIN_FLIP_SHARE * n_led * len(card_lines)))
+        numbers["card_vs_cpu"] = dict(hops=len(card_lines), lines_with_other_notes=int(sum(flipped)),
+                                      led_max_steps=led_diff, calm_max_diff=calm, t_and_gain_equal=same_head)
+        print(f"cli card vs cpu ({CLI_CARD_CPU_SECONDS:.0f} s, --path pallas --fast --led): "
+              f"{json.dumps(numbers['card_vs_cpu'])} (at most {max_flips} lines with other notes, LED within "
+              f"{CHAIN_LED_STEPS} elsewhere, calm within {CHAIN_CALM_TOL}, t= and gain= equal)")
+        check(sum(flipped) <= max_flips, "cli: card and CPU notes differ beyond the chain budget")
+        check(led_diff <= CHAIN_LED_STEPS, f"cli: LED frames card vs CPU differ by {led_diff}")
+        check(calm <= CHAIN_CALM_TOL + 0.01, f"cli: calmness card vs CPU differs by {calm}")
+        check(same_head, "cli: t= or gain= differ between card and CPU")
+
+        # (c) live: the CLI as a subprocess, the tone on its stdin
+        t48 = np.arange(int(48000 * LIVE_SECONDS)) / 48000
+        tone = (0.2 * np.sin(2 * np.pi * 440.0 * t48)).astype(np.float32).tobytes()
+        live_led = os.path.join(work, "live.bin")
+        lines, err, wall = cli_subprocess(["--serve", "--input-sr", "48000", "--pipelined", "--path", "pallas",
+                                           "--fast", "--led", live_led], tone)
+        want_hops = int(48000 * LIVE_SECONDS) // int(48000 / 30)
+        stats = [ln for ln in err.splitlines() if ln.startswith("serving stats")]
+        numbers["live_pipelined"] = dict(lines=len(lines), wall_s=wall, led_frames=int(led_frames(live_led, n_led).shape[0]))
+        print(f"cli --serve --input-sr 48000 --pipelined: {json.dumps(numbers['live_pipelined'])} "
+              f"(process start to end); {stats[-1] if stats else 'no stats line'}")
+        check(len(lines) == want_hops and numbers["live_pipelined"]["led_frames"] == want_hops,
+              f"cli live: {len(lines)} lines for {want_hops} hops")
+        check("A4" in lines[-1], f"cli live: no A4 in the last line: {lines[-1]}")
+        lines, err, wall = cli_subprocess(["--serve", "--loop", "--hops-per-dispatch", "4", "--input-sr", "48000",
+                                           "--path", "pallas", "--fast"], tone)
+        stats = [ln for ln in err.splitlines() if ln.startswith("serving stats")]
+        numbers["live_loop"] = dict(lines=len(lines), wall_s=wall)
+        print(f"cli --serve --loop --hops-per-dispatch 4: {json.dumps(numbers['live_loop'])}; "
+              f"{stats[-1] if stats else 'no stats line'}")
+        check(bool(stats) and "loop stats" in stats[-1], "cli loop: no loop stats")
+        check(any("A4" in ln for ln in lines), "cli loop: no A4 found")
+
+        # (d) --render: 1 s of the tone at 640x360 with the debug overlay
+        frames_dir = os.path.join(work, "frames")
+        reset_counts()
+        comp.launches = 0
+        with plain_calls() as plain:
+            lines, err, wall = run_cli(demo, ["--tone", "440", "--seconds", "1", "--render", frames_dir,
+                                              "--render-size", "640x360", "--debug-overlay", "--path", "pallas",
+                                              "--fast"])
+        c = counts()
+        n_frames = len(lines)
+        pngs = sorted(f for f in os.listdir(frames_dir) if f.endswith(".png"))
+        colours = [len(np.unique(read_png(os.path.join(frames_dir, f)).reshape(-1, 3), axis=0)) for f in pngs]
+        numbers["render"] = dict(frames=len(pngs), wall_s=wall, ms_a_frame=wall * 1e3 / max(1, len(pngs)),
+                                 composite_launches=comp.launches, min_colours=min(colours) if colours else 0,
+                                 plain_calls=sum(plain.values()))
+        print(f"cli --render 640x360 --debug-overlay (1 s): {json.dumps(numbers['render'])} "
+              f"(two composites a frame: the balls and the overlay's peak disks)")
+        check(len(pngs) == n_frames == 30, f"cli render: {len(pngs)} PNGs for {n_frames} hops")
+        check(comp.launches == 2 * n_frames, f"cli render: {comp.launches} composite launches for {n_frames} frames")
+        check(min(colours) > 1, "cli render: a frame of one colour")
+        check(sum(plain.values()) == 0, f"cli render: a plain version ran on the card: {plain}")
+        cli_launches["composite"] += comp.launches
+        cli_launches["vqt_power_bf16"] += c["vqt"]
+        cli_launches["peaks"] += c["peaks"]
+        cli_launches["agc"] += c["agc"]
+
+        # (e) the freq path at B=2048, default parameters
+        params = VqtParameters()
+        kernel = get_kernel(params)
+        frames = synthetic_audio(torch, B, params.n_fft, params.sr, gen)
+        x8 = frames[:FREQ_FRAMES].cpu()
+        oracle = np.stack([vqt_frame_db_np(kernel, x8[i].numpy().astype(np.float64)) for i in range(FREQ_FRAMES)])
+        freq = {}
+        for fast in (False, True):
+            tag = "bf16" if fast else "f32"
+            v = {path: Vqt(params, path=path, fast=fast) for path in ("freq", "time", "pallas")}
+            db = v["freq"].calculate_vqt_batch_in_db(frames)
+            check(tuple(db.shape) == (B, params.n_buckets) and bool(torch.isfinite(db).all()),
+                  f"freq {tag}: non-finite or misshapen output")
+            db8 = db[:FREQ_FRAMES].cpu().numpy()
+            time8 = v["time"].calculate_vqt_batch_in_db(frames[:FREQ_FRAMES]).cpu().numpy()
+            cpu = Vqt(params, path="freq", fast=fast, device="cpu")
+            p_card = v["freq"].calculate_vqt_batch_power(frames[:FREQ_FRAMES]).cpu().numpy()
+            p_cpu = cpu.calculate_vqt_batch_power(x8).numpy()
+            scale = p_cpu.max(axis=1, keepdims=True)
+            rel_excess = float(((np.abs(p_card - p_cpu) - 1e-6 * scale) / (np.abs(p_cpu) + 1e-30)).max())
+            ms = {path: time_ms(torch, lambda vq=vq: vq.calculate_vqt_batch_in_db(frames), reps=5, inner=5)
+                  for path, vq in v.items()}
+            row = dict(oracle_max_db=float(np.abs(db8 - oracle).max()), time_max_db=float(np.abs(db8 - time8).max()),
+                       cpu_power_rel_excess=rel_excess, ms=ms)
+            freq[tag] = row
+            print(f"freq path {tag} at B={B}: {json.dumps(row)} (dB call of each path, CUDA events, median of 5 x 5)")
+            if fast:
+                # bf16 rounds the packed spectrum, not the samples: its error
+                # against the oracle is recorded, and the path is held to
+                # itself on the CPU, where it meets the JAX package
+                check(rel_excess <= FREQ_BF16_RTOL, f"freq bf16 card vs CPU: power {rel_excess} beyond rtol")
+            else:
+                check(row["oracle_max_db"] <= ORACLE_DB_TOL, f"freq f32: {row['oracle_max_db']} dB from the oracle")
+                check(row["time_max_db"] <= ORACLE_DB_TOL, f"freq f32: {row['time_max_db']} dB from the time path")
+                check(rel_excess <= 1e-5, f"freq f32 card vs CPU: power {rel_excess} beyond rtol 1e-5")
+            del v, db
+        numbers["freq"] = freq
+        del frames
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    print(f"cli phase: {numbers['phase_s']:.1f} s")
+    return cli_launches, numbers
+
+
 def main() -> None:
     import torch
 
@@ -2587,6 +2929,12 @@ def main() -> None:
     # ---- 9. the training-data path -----------------------------------------------
     kernels["agc_signal"], dataset_numbers = dataset_phase(torch, counts, reset_counts)
 
+    # ---- 10. the command line ------------------------------------------------------
+    cli_counts, cli_numbers = cli_phase(torch, counts, reset_counts, gen)
+    for label in ("vqt_power_bf16", "vqt_power_f32", "peaks", "agc", "composite"):
+        kernels[label]["launches_by_path"]["cli"] = cli_counts[label]
+        kernels[label]["launches"] = sum(kernels[label]["launches_by_path"].values())
+
     order = ("vqt_power_bf16", "vqt_power_f32", "peaks", "agc", "composite", "agc_signal")
     print(json.dumps({"vqt_times": vqt_times}))
     print(json.dumps({"analysis_step": analysis_profile}))
@@ -2594,6 +2942,7 @@ def main() -> None:
     print(json.dumps({"ml_stage": ml_numbers}))
     print(json.dumps({"render": render_numbers}))
     print(json.dumps({"dataset": dataset_numbers}))
+    print(json.dumps({"cli": cli_numbers}))
     print(json.dumps({"kernels": [kernels[n] for n in order]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -13,8 +13,11 @@ trainer (train/train.py). The
 serving runtime (``StreamServer``, ``ServeLoop``; runtime/) feeds the same
 VQT, analysis and output stages from a native ingest ring bank with AGC in
 C++ on the host (native/, built with g++ at first use). Entry points run on the card unless
-given ``device="cpu"``. The package imports nothing of the JAX package; the
-modules it needs from there are copied.
+given ``device="cpu"``. The command line, ``python -m pitchvis_tpu_torch.demo``
+(demo.py), puts a WAV file, a test tone, a pipe or an ALSA microphone
+through these paths (host I/O under io/, the resampler in ops/resample.py).
+The package imports nothing of the JAX package; the modules it needs from
+there are copied.
 """
 
 from .core.config import (
@@ -30,6 +33,7 @@ from .kernel.builder import VqtKernel, build_kernel, get_kernel, kernel_stats
 from .models.analysis import (
     AnalysisOutputs,
     AnalysisState,
+    analysis_step,
     analysis_step_batch,
     init_state_batch,
 )
@@ -73,6 +77,7 @@ __all__ = [
     "kernel_stats",
     "AnalysisOutputs",
     "AnalysisState",
+    "analysis_step",
     "analysis_step_batch",
     "init_state_batch",
     "MlState",

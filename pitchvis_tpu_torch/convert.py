@@ -54,11 +54,14 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def vqt_arrays_from_numpy(
-    w_time, windows, n_filters, n_fft: int, n_buckets: int, device="cuda"
+    w_time, windows, n_filters, n_fft: int, n_buckets: int, device="cuda", w_freq=()
 ) -> VqtArrays:
-    """The ``time`` path's weights: ``w_time`` per group (window, 2*nf)."""
+    """The dense paths' weights: ``w_time`` per group (window, 2*nf) and
+    ``w_freq`` per group (2*n_spec, 2*nf); either may be empty, as in the JAX
+    package's VqtArrays.from_kernel(path=)."""
     device = resolve_device(device)
     return VqtArrays(
+        w_freq=tuple(tensor_from_numpy(w, device) for w in w_freq),
         w_time=tuple(tensor_from_numpy(w, device) for w in w_time),
         windows=tuple(tuple(int(v) for v in win) for win in windows),
         n_filters=tuple(int(f) for f in n_filters),

@@ -6,7 +6,8 @@ Port of ``pitchvis_tpu/models/analysis.py``: `AnalysisState::preprocess`
 (analysis_modules/afterglow.rs), pitch accuracy / tuning
 (analysis_modules/pitch_analysis.rs). Where the JAX package vmaps a
 per-frame step, every function here carries the stream axis first: state
-tensors are (B, n) per-bin or (B,) per-stream.
+tensors are (B, n) per-bin or (B,) per-stream. :func:`analysis_step` is the
+per-frame entry point, one stream through the batched step.
 
 The discrete peak masks come finished from the peaks kernel
 (ops/peaks_pallas.py::find_peaks_masks), two launches a hop: the smoothed
@@ -20,7 +21,7 @@ the kernel, so the step never synchronises with the host.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
@@ -44,6 +45,17 @@ class AnalysisState:
     released_note_calmness: torch.Tensor
     scene_calmness: torch.Tensor
     tuning_inaccuracy: torch.Tensor
+
+    @classmethod
+    def init(cls, n_buckets: int, device="cuda") -> "AnalysisState":
+        """One stream's fresh state (per-bin leaves (n,), per-stream ()),
+        for :func:`analysis_step`."""
+        return _row(init_state_batch(1, n_buckets, device=device), 0)
+
+
+def _row(tree, i: int):
+    """Row ``i`` of every leaf of a batched state or outputs dataclass."""
+    return type(tree)(**{f.name: getattr(tree, f.name)[i] for f in fields(tree)})
 
 
 @dataclass
@@ -327,3 +339,23 @@ def analysis_step_batch(
     return _analysis_core(
         params, rng, state, x_vqt, dt_col, x_smoothed, bass_mask, gen_mask, raw_mask
     )
+
+
+def analysis_step(
+    params: AnalysisParameters,
+    rng: VqtRange,
+    state: AnalysisState,
+    x_vqt: torch.Tensor,
+    dt,
+) -> tuple[AnalysisState, AnalysisOutputs]:
+    """One frame of the analysis chain (analysis.rs:288-404) for one stream:
+    ``x_vqt`` is a dB spectrum (n_buckets,), ``state`` a per-frame state
+    (:meth:`AnalysisState.init`), ``dt`` the frame time in seconds. Runs
+    :func:`analysis_step_batch` on a batch of one, so it launches what a
+    batched step does."""
+    n = rng.n_buckets
+    if tuple(x_vqt.shape) != (n,):
+        raise ValueError(f"x_vqt must be ({n},), got {tuple(x_vqt.shape)}")
+    batched = type(state)(**{f.name: getattr(state, f.name)[None] for f in fields(state)})
+    new_state, outputs = analysis_step_batch(params, rng, batched, x_vqt[None], dt)
+    return _row(new_state, 0), _row(outputs, 0)

@@ -349,3 +349,21 @@ def promote_bass_peaks(
     boost = torch.clamp_max(1.0 + 0.5 * score / torch.clamp_min(fundamental_power, 1e-6), 1.5)
     boosted = size + 10.0 * torch.log10(boost)
     return torch.where(is_bass & (score > 0.0), boosted, size)
+
+
+def top_k_peaks(
+    peak_mask: torch.Tensor, center: torch.Tensor, size: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fixed-size peak list for list consumers (display balls, ML): the k
+    largest peaks by size, returned in ascending center order with a validity
+    mask. Invalid slots have center=+inf, size=0. Equal sizes keep the lower
+    bin first, and equal centers their order, as ``lax.top_k`` and the
+    stable ``jnp.argsort`` break ties."""
+    neg = torch.where(peak_mask, size, torch.full_like(size, -1.0))
+    vals, idxs = torch.sort(neg, dim=-1, descending=True, stable=True)
+    vals, idxs = vals[..., :k], idxs[..., :k]
+    valid = vals >= 0.0
+    c = torch.where(valid, center.gather(-1, idxs), torch.full_like(vals, float("inf")))
+    s = torch.where(valid, size.gather(-1, idxs), torch.zeros_like(vals))
+    order = torch.argsort(c, dim=-1, stable=True)
+    return c.gather(-1, order), s.gather(-1, order), valid.gather(-1, order)

@@ -2,17 +2,20 @@
 
 Port of ``pitchvis_tpu/ops/vqt.py``, the counterpart of
 `Vqt::calculate_vqt_instant_in_db` (pitchvis_analysis/src/vqt.rs:866-916).
-Paths, both driven by the packed kernel from
+Paths, all driven by the packed kernel from
 :mod:`pitchvis_tpu_torch.kernel.builder`:
 
 * ``path="time"``: the sparsified frequency kernel folded through the DFT at
   build time, so each window group is one dense product
   ``x_window @ w_time -> [Re y | Im y]``, left to ``torch.matmul`` with TF32
   off (the JAX package leaves it to XLA outside any kernel).
+* ``path="freq"``: per window group, the batched real FFT of the input slice
+  (``torch.fft.rfft``, cuFFT on the card), then one product
+  ``[Re X | Im X] @ w_freq -> [Re y | Im y]``, again ``torch.matmul`` with
+  TF32 off (the JAX package computes both outside any kernel).
 * ``path="pallas"``: the fused hand-written kernel of
   :mod:`pitchvis_tpu_torch.ops.vqt_pallas` (all groups in one launch).
 
-The ``freq`` path (batched rFFT + one product per group) is not ported yet.
 The dB conversion (vqt.rs:922-954) is plain PyTorch after the product.
 """
 
@@ -58,12 +61,30 @@ def precision_for(weight_dtype: torch.dtype) -> torch.dtype:
     return torch.bfloat16 if weight_dtype == torch.bfloat16 else torch.float32
 
 
+PRECISIONS = ("highest", "default")
+
+
+def check_precision(precision) -> str | None:
+    """``Vqt(precision=)``: None, "highest" or "default" (the JAX package's
+    jax.lax.Precision names, case aside). The dense paths round their input
+    to the weights' dtype and multiply in float32, TF32 off, under both:
+    "highest" is float32 products; "default" is the one-pass pairing of the
+    weight dtype (bf16 x bf16 products, exact in float32, for bf16 weights;
+    float32 weights have one pairing, float32 products)."""
+    if precision is None:
+        return None
+    name = str(precision).lower()
+    if name not in PRECISIONS:
+        raise ValueError(f"precision must be None, 'highest' or 'default', got {precision!r}")
+    return name
+
+
 def matmul_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``a @ w`` with both operands in float32, the counterpart of XLA's
     Precision.HIGHEST. On the card it raises if TF32 is on
     (``torch.backends.cuda.matmul.allow_tf32``) instead of changing that
     process-wide flag itself: :func:`make_vqt_arrays` turns it off once for
-    the ``time`` path."""
+    the ``time`` and ``freq`` paths."""
     if a.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
             "the float32 VQT product needs torch.backends.cuda.matmul.allow_tf32 = False"
@@ -73,9 +94,10 @@ def matmul_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 @dataclass
 class VqtArrays:
-    """Device-resident dense weights of the ``time`` path."""
+    """Device-resident dense weights of the ``time`` and ``freq`` paths."""
 
-    w_time: tuple[torch.Tensor, ...]  # per group (window, 2*n_filt)
+    w_freq: tuple[torch.Tensor, ...]  # per group (2*n_spec, 2*n_filt); () unless uploaded
+    w_time: tuple[torch.Tensor, ...]  # per group (window, 2*n_filt); () unless uploaded
     windows: tuple[tuple[int, int], ...]
     n_filters: tuple[int, ...]
     n_fft: int
@@ -83,14 +105,20 @@ class VqtArrays:
 
     @classmethod
     def from_kernel(
-        cls, kernel: VqtKernel, dtype=torch.float32, device="cuda"
+        cls, kernel: VqtKernel, dtype=torch.float32, path: str | None = None, device="cuda"
     ) -> "VqtArrays":
+        """``path``: upload only the weight set that path uses ("time" or
+        "freq"); None uploads both (the sets are comparable in size, and the
+        unused one would double the weights' device memory)."""
         device = resolve_device(device)
         groups = kernel.window_groups
+
+        def upload(name):
+            return tuple(torch.from_numpy(getattr(g, name)).to(device=device, dtype=dtype) for g in groups)
+
         return cls(
-            w_time=tuple(
-                torch.from_numpy(g.w_time).to(device=device, dtype=dtype) for g in groups
-            ),
+            w_freq=upload("w_freq") if path in (None, "freq") else (),
+            w_time=upload("w_time") if path in (None, "time") else (),
             windows=tuple(g.window for g in groups),
             n_filters=tuple(g.n_filters for g in groups),
             n_fft=kernel.params.n_fft,
@@ -109,16 +137,33 @@ def _group_power_time(x_win: torch.Tensor, w_time: torch.Tensor) -> torch.Tensor
     return re * re + im * im
 
 
+def _group_power_freq(x_win: torch.Tensor, w_freq: torch.Tensor) -> torch.Tensor:
+    """rFFT + one product -> |y|^2 for one window group. x_win: (B,
+    window_size) f32; returns (B, n_filt) f32. The packed spectrum
+    ``[Re X | Im X]`` is rounded to the weights' pairing (precision_for)
+    before the float32 product, as in :func:`_group_power_time`."""
+    spec = torch.fft.rfft(x_win.float())  # (B, n_spec) complex64
+    packed = torch.cat([spec.real, spec.imag], dim=-1)  # (B, 2*n_spec)
+    y = matmul_f32(packed.to(precision_for(w_freq.dtype)), w_freq)
+    n_filt = w_freq.shape[1] // 2
+    re = y[:, :n_filt]
+    im = y[:, n_filt:]
+    return re * re + im * im
+
+
 def vqt_power_batch(arrays: VqtArrays, x: torch.Tensor, *, path: str = "time") -> torch.Tensor:
     """|VQT|^2 of a batch of frames. x: (B, n_fft) f32 -> (B, n_buckets)."""
     if x.dim() != 2 or x.shape[1] != arrays.n_fft:
         raise ValueError(f"input must be (B, n_fft={arrays.n_fft}), got {tuple(x.shape)}")
-    if path != "time":
-        raise ValueError(f"unknown VQT path {path!r} (the port has 'time' and 'pallas')")
-    parts = [
-        _group_power_time(x[:, begin:end], w)
-        for (begin, end), w in zip(arrays.windows, arrays.w_time)
-    ]
+    if path == "time":
+        group_power, weights = _group_power_time, arrays.w_time
+    elif path == "freq":
+        group_power, weights = _group_power_freq, arrays.w_freq
+    else:
+        raise ValueError(f"unknown VQT path {path!r}")
+    if len(weights) != len(arrays.windows):
+        raise ValueError(f"these VqtArrays hold no weights for path {path!r} (VqtArrays.from_kernel(path=))")
+    parts = [group_power(x[:, begin:end], w) for (begin, end), w in zip(arrays.windows, weights)]
     return torch.cat(parts, dim=-1)
 
 
@@ -132,11 +177,12 @@ def make_vqt_arrays(
 ):
     """Uniform kernel-upload constructor for every serving entry point.
 
-    Returns :class:`VqtArrays` for ``path="time"`` or
+    Returns :class:`VqtArrays` for the dense paths ("time" / "freq", only
+    that path's weights) or
     :class:`~pitchvis_tpu_torch.ops.vqt_pallas.PallasVqtArrays` for the fused
     kernel (``path="pallas"``). ``fast=True`` stores the weights in bf16.
     ``device`` defaults to the card and raises without CUDA. On the card the
-    ``time`` path's products go to ``torch.matmul`` in full float32, so this
+    dense paths' products go to ``torch.matmul`` in full float32, so this
     sets ``torch.backends.cuda.matmul.allow_tf32 = False`` for the process."""
     device = resolve_device(device)
     dtype = torch.bfloat16 if fast else torch.float32
@@ -144,17 +190,17 @@ def make_vqt_arrays(
         from .vqt_pallas import PallasVqtArrays
 
         return PallasVqtArrays.from_kernel(kernel, dtype=dtype, device=device)
-    if path != "time":
-        raise ValueError(f"unknown VQT path {path!r} (the port has 'time' and 'pallas')")
+    if path not in ("time", "freq"):
+        raise ValueError(f"unknown VQT path {path!r}")
     if torch.device(device).type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
-    return VqtArrays.from_kernel(kernel, dtype=dtype, device=device)
+    return VqtArrays.from_kernel(kernel, dtype=dtype, path=path, device=device)
 
 
 def vqt_db_auto(arrays, x: torch.Tensor, *, path: str = "time") -> torch.Tensor:
-    """Path-dispatching dB VQT used by the streaming pipeline: routes
-    ``path="pallas"`` to the fused kernel and ``"time"`` through
-    :func:`vqt_db_batch`."""
+    """Path-dispatching dB VQT used by the streaming pipeline and the
+    server: routes ``path="pallas"`` to the fused kernel and the dense paths
+    ("time" / "freq") through :func:`vqt_db_batch`."""
     if path == "pallas":
         from .vqt_pallas import vqt_db_pallas
 
@@ -168,9 +214,13 @@ class Vqt:
     :meth:`calculate_vqt_instant_in_db` computes one frame; the batched entry
     points are the extension.
 
-    ``path``: "time" (dense products) or "pallas" (the fused hand-written
-    kernel). ``fast=True`` stores the weights in bf16 and rounds the input to
-    bf16, with products and sums in f32. ``device`` defaults to the card.
+    ``path``: "time" (dense products), "freq" (batched rFFT + one product
+    per group, the reference's structure) or "pallas" (the fused
+    hand-written kernel). ``fast=True`` stores the weights in bf16 and
+    rounds the input to bf16, with products and sums in f32. ``precision``
+    (None, "highest" or "default"; :func:`check_precision`) applies to the
+    dense paths; ``path="pallas"`` pairs it with the weight dtype and
+    raises if one is given. ``device`` defaults to the card.
     """
 
     def __init__(
@@ -178,14 +228,29 @@ class Vqt:
         params: VqtParameters | None = None,
         *,
         path: str = "time",
+        precision=None,
         fast: bool = False,
         device="cuda",
     ):
         self.params = params or VqtParameters()
         self.device = resolve_device(device)
+        precision = check_precision(precision)
+        if precision is not None and path == "pallas":
+            # the fused kernel derives its precision from the weight dtype
+            # (fast=False -> f32, fast=True -> bf16 one-pass); silently
+            # accepting e.g. "highest" with bf16 weights would hand the user
+            # less precision than they asked for
+            raise ValueError(
+                "path='pallas' pairs precision with the weight dtype "
+                "(use fast=False for exact f32); precision applies to the "
+                "dense 'time'/'freq' paths"
+            )
         self.kernel = get_kernel(self.params)
         self.path = path
         self.fast = fast
+        # the pairing every other entry point uses: bf16 weights -> one-pass
+        # "default", f32 -> "highest". An explicit argument wins.
+        self.precision = precision or ("default" if fast else "highest")
         self.delay_secs = self.kernel.delay_secs
         self.arrays = make_vqt_arrays(self.kernel, path=path, fast=fast, device=self.device)
 

@@ -102,6 +102,19 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
+def available() -> bool:
+    """True when the ingest library builds and loads (the JAX package's
+    ``runtime/native.py::available``); False where it cannot, as on a host
+    without g++. Callers that offer a path without the native runtime (the
+    CLI's ``--serve``) ask this first, so that no other failure is taken
+    for a missing library."""
+    try:
+        load()
+    except RuntimeError:
+        return False
+    return True
+
+
 def load_synth() -> ctypes.CDLL:
     """The bound SoundFont engine (synth_engine.cpp), built at first use.
     Raises RuntimeError when it cannot be built or loaded. ctypes releases

@@ -33,3 +33,8 @@ def ema_alpha(dt, horizon):
 def ema_update(y, x, dt, horizon):
     """One EMA step toward x over timestep dt (util.rs:106-125)."""
     return y + ema_alpha(dt, horizon) * (x - y)
+
+
+def ema_update_with_alpha(y, x, alpha):
+    """One EMA step toward x with a given decay ``alpha``."""
+    return y + alpha * (x - y)

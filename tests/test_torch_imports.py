@@ -19,6 +19,11 @@ from pitchvis_tpu_torch.train.dataset import generate_dataset
 from pitchvis_tpu_torch.train.device_dataset import generate_dataset_device, render_schedule_device, schedule_from_midi
 from pitchvis_tpu_torch.train.train import TrainConfig, train
 from pitchvis_tpu_torch.synth.midi import MidiFile
+from pitchvis_tpu_torch import demo
+from pitchvis_tpu_torch.io.capture import WavStreamDriver
+from pitchvis_tpu_torch.io.golden import run_chain
+from pitchvis_tpu_torch.io.wav import save_wav
+from pitchvis_tpu_torch.ops.resample import PolyphaseResampler, resample
 
 from conftest import SMALL_PARAMS
 from torch_port_helpers import to_port
@@ -52,8 +57,11 @@ def test_port_files_found():
     for module in ("models/pitch_mlp.py", "models/ml_system.py", "train/train.py", "models/render.py",
                    "models/glyph_atlas.py", "ops/composite.py", "synth/midi.py", "synth/sf2.py", "synth/engine.py",
                    "synth/synthesizer.py", "synth/engine_native.py", "train/dataset.py", "train/device_dataset.py",
-                   "train/logistic.py", "train/corpus.py"):
+                   "train/logistic.py", "train/corpus.py", "utils/signal.py", "io/wav.py", "ops/resample.py",
+                   "core/settings.py", "core/tuning.py", "io/keytune.py", "io/alsa.py", "io/capture.py",
+                   "io/golden.py", "io/png.py", "utils/profiling.py", "demo.py"):
         assert os.path.join(ROOT, "pitchvis_tpu_torch", module) in files, module
+    assert os.path.exists(os.path.join(ROOT, "pitchvis_tpu_torch", "native", "alsa_stub.c"))
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
@@ -63,12 +71,24 @@ def test_no_jax_imports(path):
 
 
 @pytest.mark.parametrize("entry", ["pipeline", "vqt", "arrays", "server", "train", "model", "render", "dataset",
-                                   "device_dataset", "render_schedule", "train_demo", "agc_init"])
+                                   "device_dataset", "render_schedule", "train_demo", "agc_init", "resampler",
+                                   "resample", "vqt_freq", "run_chain", "wav_driver"])
 def test_entry_points_raise_without_cuda(entry, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     params = to_port(SMALL_PARAMS)
     with pytest.raises(RuntimeError, match="CUDA"):
-        if entry == "train":
+        if entry == "resampler":
+            PolyphaseResampler(44100, 22050, 441)
+        elif entry == "resample":
+            resample(np.zeros(441, np.float32), 44100, 22050)
+        elif entry == "vqt_freq":
+            pt.Vqt(params, path="freq")
+        elif entry == "run_chain":
+            run_chain(params, np.zeros(800, np.float32))
+        elif entry == "wav_driver":
+            save_wav(str(tmp_path / "x.wav"), np.zeros(441, np.float32), 44100)
+            WavStreamDriver(str(tmp_path / "x.wav"), 22050, 368)
+        elif entry == "train":
             train(np.zeros((8, 8 + 128), np.float32), TrainConfig(n_buckets=8, t_window=2, mlp_size=8, epochs=1))
         elif entry == "dataset":
             generate_dataset([], params)
@@ -92,6 +112,17 @@ def test_entry_points_raise_without_cuda(entry, monkeypatch, tmp_path):
             pt.StreamServer(2, params, buffer_seconds=1.0, path="pallas", fast=True)
         else:
             pt.make_vqt_arrays(pt.get_kernel(params), path="pallas")
+
+
+@pytest.mark.parametrize("argv", [["--tone", "440", "--seconds", "0.1"], ["--serve"], ["--tone", "440", "--device", "cuda"]])
+def test_cli_exits_without_cuda(argv, monkeypatch, capsys):
+    """demo.main on the card's default exits non-zero with resolve_device's
+    message before any work, offline and live; nothing moves to the CPU on
+    its own."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert demo.main(argv) == 1
+    out = capsys.readouterr()
+    assert "CUDA is not available" in out.err and "--device cpu" in out.err and out.out == ""
 
 
 def test_cpu_wrappers_take_the_plain_versions():

@@ -317,3 +317,31 @@ def test_find_peaks_masks_arguments_and_empty_batch():
         find_peaks_masks(x, (ap.peak_config,), 84, suppress_iterations=-1)
     empty = find_peaks_masks(x[:0], (ap.bassline_peak_config, ap.peak_config), 84)
     assert [tuple(m.shape) for m in empty] == [(0, 96), (0, 96)] and empty[0].dtype == torch.bool
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("k", [1, 5, 16])
+def test_top_k_peaks_matches_jax(seed, k):
+    """ops/peaks.py::top_k_peaks against the JAX package's on peak masks
+    with many equal sizes and equal centers: ties go to the lower bin, as
+    lax.top_k breaks them, and equal centers keep their order, as the
+    stable jnp.argsort does; k beyond the peaks pads with +inf / 0 /
+    invalid."""
+    r = np.random.default_rng(seed)
+    n = 180
+    mask = r.random((4, n)) < 0.08
+    size = np.round(r.uniform(0.0, 3.0, (4, n))).astype(np.float32)  # few levels: ties
+    center = (np.arange(n) + np.round(r.uniform(-2, 2, (4, n)))).astype(np.float32)  # equal centers
+    mask[3] = False
+    for b in range(4):
+        want = jpeaks.top_k_peaks(jnp.asarray(mask[b]), jnp.asarray(center[b]), jnp.asarray(size[b]), k)
+        got = tpeaks.top_k_peaks(torch.from_numpy(mask[b]), torch.from_numpy(center[b]),
+                                 torch.from_numpy(size[b]), k)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    batched = tpeaks.top_k_peaks(torch.from_numpy(mask), torch.from_numpy(center), torch.from_numpy(size), k)
+    for b in range(4):
+        one = tpeaks.top_k_peaks(torch.from_numpy(mask[b]), torch.from_numpy(center[b]),
+                                 torch.from_numpy(size[b]), k)
+        for g, w in zip(batched, one):
+            torch.testing.assert_close(g[b], w, rtol=0, atol=0)

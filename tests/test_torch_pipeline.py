@@ -322,3 +322,47 @@ def test_smoothing_horizons_equal_jax(scene):
     want = np.asarray(jax_horizons(ap, params.range, jnp.float32(scene)))
     got = _smoothing_horizons(to_port(ap), to_port(params.range), torch.full((1,), scene))[0].numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def test_per_frame_analysis_step_matches_jax():
+    """The per-frame models/analysis.py::analysis_step (exported from the
+    package as in the JAX package) on one stream of the JAX package's dB
+    spectra, its state carried for 10 frames: the same peaks, state leaves
+    within atol 1e-5 as the batched step is held; and it equals row 0 of
+    the port's batched step."""
+    from pitchvis_tpu.models.analysis import AnalysisState as JState
+    from pitchvis_tpu.models.analysis import analysis_step as jax_analysis_step
+    from pitchvis_tpu_torch import analysis_step
+    from pitchvis_tpu_torch.models.analysis import AnalysisState
+
+    sig = _audio()
+    ap, rng_cfg = AnalysisParameters(), SMALL_PARAMS.range
+    jp = JaxPipeline(B, SMALL_PARAMS, path="pallas")
+    n = SMALL_PARAMS.n_buckets
+    js, ts, tb = JState.init(n), AnalysisState.init(n, device="cpu"), init_state_batch(1, n, device="cpu")
+    assert ts.x_vqt_smoothed.shape == (n,) and ts.scene_calmness.shape == ()
+    for h in range(10):
+        x = np.array(jp.step(sig[:, h * HOP : (h + 1) * HOP], DT).x_vqt)[0]
+        js, jo = jax_analysis_step(ap, rng_cfg, js, jnp.asarray(x), DT)
+        ts, to = analysis_step(to_port(ap), to_port(rng_cfg), ts, torch.from_numpy(x), DT)
+        tb, tob = analysis_step_batch(to_port(ap), to_port(rng_cfg), tb, torch.from_numpy(x[None]), DT)
+        np.testing.assert_array_equal(to.peaks.numpy(), np.asarray(jo.peaks), err_msg=f"frame {h}")
+        for k in ANALYSIS_LEAVES:
+            np.testing.assert_allclose(getattr(ts, k).numpy(), np.asarray(getattr(js, k)), atol=1e-5, err_msg=k)
+            torch.testing.assert_close(getattr(ts, k), getattr(tb, k)[0], rtol=0, atol=0)
+        torch.testing.assert_close(to.peak_size, tob.peak_size[0], rtol=0, atol=0)
+    with pytest.raises(ValueError, match=f"x_vqt must be \\({n},\\)"):
+        analysis_step(to_port(ap), to_port(rng_cfg), ts, torch.zeros(1, n), DT)
+
+
+def test_ema_update_with_alpha_matches_jax():
+    from pitchvis_tpu.utils.ema import ema_update_with_alpha as jax_ema
+    from pitchvis_tpu_torch.utils.ema import ema_update_with_alpha
+
+    r = np.random.default_rng(4)
+    y, x = (r.standard_normal((3, 40)).astype(np.float32) for _ in range(2))
+    for alpha in (0.0, 0.37, 1.0, r.uniform(0, 1, 40).astype(np.float32)):
+        got = ema_update_with_alpha(torch.from_numpy(y), torch.from_numpy(x),
+                                    torch.from_numpy(alpha) if isinstance(alpha, np.ndarray) else alpha)
+        want = np.asarray(jax_ema(jnp.asarray(y), jnp.asarray(x), alpha))
+        np.testing.assert_array_equal(got.numpy(), want)
