@@ -120,12 +120,19 @@ toolkit (nvcc). Phases, each of which fails the run on any error:
    seed=0) under build/dataset_phase/, deleted after): the AGC kernel's
    signal mode (csrc/agc.cu, ops/agc.py::agc_signal) torch.equal to its
    plain version over a whole file (and to the chunk mode carried chunk by
-   chunk), at B=8 rows of 2 s, with silent chunks, energies just under and
-   over 1e-6, C=1, C=0, strided and unaligned rows and the empty batch, with
-   its time, its plain version's, its bound and the chain's latency floor;
-   generate_dataset_device over the 8 files (frames/s, the split into render,
-   AGC, windows + VQT and labels, launches, peak memory), render and AGC of
-   one file under set_sync_debug_mode("error"); generate_dataset on 2 files
+   chunk), on the 8 files zero-padded into one batch against each file
+   alone and at B=132 against that batch, at B=8 rows of 2 s, with silent
+   chunks, energies just under and over 1e-6, C=1, C=0, strided and
+   unaligned rows, the empty batch, 8 rows of unequal lengths zero-padded,
+   more rows than the card has SMs, an all-silent row, one chunk and a loud
+   chunk after quiet ones (the max clamps the update at k), with
+   its time for one file, for the batch and at B=132, ns a sample, its plain
+   version's, its bound and the chain's latency floor;
+   generate_dataset_device over the 8 files (frames/s, the split into
+   render, AGC, windows + VQT and labels, one agc_signal launch a batch of
+   at most one row an SM, its rows equal to the file-by-file route's, peak
+   memory), render and AGC of the batch under
+   set_sync_debug_mode("error"); generate_dataset on 2 files
    with the font and 2 workers, on the card against the CPU (targets equal,
    spectra within 1e-2 dB); the device route against the host route on one
    file without a font (tests/test_device_dataset.py's criteria); the device
@@ -1698,7 +1705,7 @@ AGC_CHAIN_OPS = 6
 AGC_OP_CYCLES = 4
 
 
-def agc_signal_cases(torch, gen, signal) -> dict:
+def agc_signal_cases(torch, gen, signal, batch, own) -> dict:
     """Phase 9 (a): the AGC kernel's signal mode (ops/agc.py::agc_signal)
     against agc_signal_plain on the card, torch.equal, gains included, and
     over the whole 60-second file ``signal`` ((1, N) on the card) also
@@ -1707,9 +1714,13 @@ def agc_signal_cases(torch, gen, signal) -> dict:
     run there as its own per-chunk calls (agc_chunk_plain) on all chunks at
     once, each from the gain the kernel reached before it: every chunk's
     output and end gain equal to the kernel's is, chunk by chunk from the
-    first (gain 1), the sequential plain version's result. Its time, its
-    plain version's at 2 s and its bound (bytes, and the chain's latency
-    floor beside it)."""
+    first (gain 1), the sequential plain version's result. ``batch``: the
+    corpus's rendered files as the device route batches them ((F, N_max),
+    zero-padded; ``signal`` is its first row cut to its own ``own[0]``
+    chunks), in one launch against each file alone, and 132 rows (the
+    batch's rows over and over) against it.
+    Its time for one file, the batch and B=132, its plain version's at 2 s,
+    and its bound (bytes, and the chain's latency floor beside it)."""
     from pitchvis_tpu_torch.ops import agc as agc_mod
     from pitchvis_tpu_torch.train.device_dataset import TRAIN_AGC
 
@@ -1745,6 +1756,37 @@ def agc_signal_cases(torch, gen, signal) -> dict:
     check(same_chunk, "AGC signal mode differs from the chunk mode carried chunk by chunk")
     check(same_plain, "AGC signal mode differs from its plain version over the whole file")
 
+    # the corpus batch in one launch: every row, its zero chunks included,
+    # against the plain version per chunk as above (all rows' chunks in one
+    # call); each row's own chunks as the file alone gives them, the zero
+    # chunks after them frozen; 132 rows, the batch's rows over and over,
+    # row by row as the batch
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    batch_out, batch_gains = run(batch)
+    b_rows, c_all = batch_gains.shape
+    starts = torch.cat([torch.ones((b_rows, 1), device=dev), batch_gains[:, :-1]], 1)
+    g_p, o_p = agc_mod.agc_chunk_plain(starts.reshape(-1), batch[:, : c_all * chunk].reshape(-1, chunk), p)
+    same_batch_plain = bool(torch.equal(o_p.reshape(b_rows, -1), batch_out))
+    same_batch_plain &= bool(torch.equal(g_p.reshape(b_rows, c_all), batch_gains))
+    check(same_batch_plain, "AGC signal mode differs from its plain version on a row of the corpus batch")
+    same_rows = bool(torch.equal(batch_out[0, : out.shape[1]], out[0])) and bool(torch.equal(batch_gains[0, :n_chunks],
+                                                                                             gains[0]))
+    for i, c_own in enumerate(own):
+        alone_out, alone_gains = run(batch[i : i + 1, : c_own * chunk])
+        same_rows &= bool(torch.equal(batch_out[i, : c_own * chunk], alone_out[0]))
+        same_rows &= bool(torch.equal(batch_gains[i, :c_own], alone_gains[0]))
+        same_rows &= bool((batch_gains[i, c_own:] == batch_gains[i, c_own - 1]).all())
+    check(same_rows, "AGC signal mode: a padded batch row differs from its file alone")
+    wide = batch[torch.arange(n_sms, device=dev) % batch.shape[0]]
+    wide_out, wide_gains = run(wide)
+    same_wide = bool(torch.equal(wide_out, batch_out[torch.arange(n_sms, device=dev) % batch.shape[0]]))
+    same_wide &= bool(torch.equal(wide_gains, batch_gains[torch.arange(n_sms, device=dev) % batch.shape[0]]))
+    check(same_wide, f"AGC signal mode at B={n_sms} differs from the batch of {batch.shape[0]}")
+    print(f"agc signal mode on the corpus batch ({batch.shape[0]} files zero-padded to {batch.shape[1]} samples, "
+          f"{own} chunks of their own) in one launch: every row equal to the plain version chunk by chunk "
+          f"({b_rows * c_all} chunks, the padding's included) and to its file alone, the padding frozen; at "
+          f"B={n_sms} (its rows over and over) equal to it row by row")
+
     # (2) small cases against agc_signal_plain itself
     def audio(b, n, scale=0.3):
         return torch.randn((b, n), generator=gen, device=dev) * scale
@@ -1758,6 +1800,13 @@ def agc_signal_cases(torch, gen, signal) -> dict:
         seg = edge[row, chunk : 2 * chunk]
         edge[row, chunk : 2 * chunk] = seg * float(np.sqrt(target / float((seg.double() ** 2).sum())))
     base = audio(4, 3 * (5 * chunk + 7))
+    unequal = audio(8, 6 * chunk)
+    for row, n in enumerate((6 * chunk, 2 * chunk, 5 * chunk, chunk, 3 * chunk + 700, 6 * chunk, 4 * chunk, 0)):
+        unequal[row, n:] = 0.0
+    all_silent = audio(3, 3 * chunk)
+    all_silent[1] = 0.0
+    clamps = audio(2, 8 * chunk, 1e-3)  # the gain grows over quiet chunks, a loud one clamps it at k
+    clamps[:, 5 * chunk : 6 * chunk] *= 2000.0
     cases = {
         "B=8 rows of 2 s (22 chunks and a ragged tail)": rows8,
         "rows with silent chunks in the middle": silent,
@@ -1767,6 +1816,12 @@ def agc_signal_cases(torch, gen, signal) -> dict:
         "a strided view (every third sample)": base[:, ::3][:, : 5 * chunk],
         "rows off 16-byte alignment (row stride 3 * (5 * chunk + 7))": base[1:, 3 : 3 + 5 * chunk],
         "the empty batch": audio(0, 3 * chunk),
+        "B=8 rows of unequal lengths (6, 2, 5, 1, 3 and 700 samples, 6, 4 and 0 chunks), zero-padded":
+            unequal,
+        f"B={n_sms + 1} rows of 2 chunks, more rows than the card has SMs": audio(n_sms + 1, 2 * chunk),
+        "an all-silent row": all_silent,
+        "one chunk": audio(2, chunk),
+        "quiet chunks, then a loud one that clamps the update at k": clamps,
     }
     plain_ms = None
     for label, x in cases.items():
@@ -1785,33 +1840,51 @@ def agc_signal_cases(torch, gen, signal) -> dict:
     gains_edge = run(edge)[1]
     check(bool(gains_edge[0, 1] == gains_edge[0, 0]) and bool(gains_edge[1, 1] != gains_edge[1, 0]),
           "the chunk under 1e-6 must keep its gain, the one over it must not")
+    check(bool((run(all_silent)[1][1] == 1.0).all()), "an all-silent row must keep the gain of 1")
+    gains_clamped = run(clamps)[1]
+    check(bool((gains_clamped[:, 5] < 0.01 * gains_clamped[:, 4]).all()), "the loud chunk must clamp the gain")
     print(f"agc signal mode equal (torch.equal, gains included) to agc_signal_plain on the card in {len(cases)} "
           f"cases: " + "; ".join(cases))
 
     n = signal.shape[1] // chunk * chunk
     ms = time_ms(torch, lambda: agc_mod.agc_signal(signal, chunk, p), reps=5, inner=3)
     # the kernel alone: CUDA events around one launch on an idle stream (a
-    # launch takes microseconds of its some 30 ms; the profiler, which loses
+    # launch takes microseconds of its some 20 ms; the profiler, which loses
     # a window's events now and then, is not needed for one kernel this long)
     card_ms = time_ms(torch, lambda: agc_mod.agc_signal(signal, chunk, p), reps=5, inner=1)
+    batch_ms = time_ms(torch, lambda: agc_mod.agc_signal(batch, chunk, p), reps=5, inner=1)
+    wide_ms = time_ms(torch, lambda: agc_mod.agc_signal(wide, chunk, p), reps=3, inner=1)
     rows8_ms = time_ms(torch, lambda: agc_mod.agc_signal(rows8, chunk, p), reps=5, inner=5)
     # each sample read once and written once, each chunk's gain written once;
     # seven float operations a sample at the FFMA rate
     bytes_moved = 8 * n + 4 * n_chunks
     b_ms, b_by = bound_ms(bytes_moved, 7.0 * n, F32_FLOPS)
+    batch_chunks = sum(own)
+    batch_b_ms, _ = bound_ms(8 * batch_chunks * chunk + 4 * batch_chunks, 7.0 * batch_chunks * chunk, F32_FLOPS)
     clock_mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
                                      capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
     chain_ms = n * AGC_CHAIN_OPS * AGC_OP_CYCLES / (clock_mhz * 1e3)
+    batch_chain_ms = max(own) * chunk * AGC_CHAIN_OPS * AGC_OP_CYCLES / (clock_mhz * 1e3)
     print(f"agc signal mode, one file (B=1, {n} samples): {ms:.4f} ms a call (3 in a row), {card_ms:.4f} ms on the "
           f"card alone (one launch between CUDA events), "
           f"{card_ms * 1e6 / n:.2f} ns a sample; bound {b_ms:.5f} ms ({b_by}: {bytes_moved / 1e6:.2f} MB); the "
           f"chain's latency floor {chain_ms:.3f} ms ({AGC_CHAIN_OPS} dependent operations of {AGC_OP_CYCLES} cycles "
-          f"a sample at {clock_mhz:.0f} MHz); B=8 rows of 2 s: kernel {rows8_ms:.4f} ms, plain {plain_ms:.1f} ms; "
+          f"a sample at {clock_mhz:.0f} MHz, {AGC_CHAIN_OPS * AGC_OP_CYCLES * 1e3 / clock_mhz:.2f} ns a sample); "
+          f"B=8 rows of 2 s: kernel {rows8_ms:.4f} ms, plain {plain_ms:.1f} ms; "
           f"no single PyTorch call computes the same function (library none)")
-    return dict(cases=["one 60-second corpus file against the chunk mode and the plain version"] + list(cases),
+    print(f"agc signal mode, the corpus batch in one launch (B={batch.shape[0]}, {batch_chunks} chunks of their own, "
+          f"the longest {max(own)}): {batch_ms:.4f} ms on the card alone, {batch_ms / card_ms:.3f}x one file's; bound "
+          f"{batch_b_ms:.5f} ms (bytes), the chain's floor {batch_chain_ms:.3f} ms (the longest row); B={n_sms} (its "
+          f"rows over and over): {wide_ms:.4f} ms, {wide_ms / card_ms:.3f}x one file's")
+    return dict(cases=["one 60-second corpus file against the chunk mode and the plain version",
+                       f"the corpus batch of {batch.shape[0]} files against the plain version and each file alone, "
+                       f"and at B={n_sms}"]
+                + list(cases),
                 max_abs_err=0.0, ms=ms, card_ms=card_ms, ns_per_sample=card_ms * 1e6 / n, plain_ms=plain_ms,
                 plain_at="B=8 rows of 2 s", rows8_ms=rows8_ms, bound_ms=b_ms, bound_by=b_by, bytes=bytes_moved,
-                chain_floor_ms=chain_ms, sm_clock_mhz=clock_mhz, samples=n, chunks=n_chunks)
+                chain_floor_ms=chain_ms, sm_clock_mhz=clock_mhz, samples=n, chunks=n_chunks,
+                batch_rows=batch.shape[0], batch_ms=batch_ms, batch_over_one=batch_ms / card_ms,
+                batch_bound_ms=batch_b_ms, batch_chain_floor_ms=batch_chain_ms, wide_rows=n_sms, wide_ms=wide_ms)
 
 
 def labels_close(a: dict, b: dict, rtol: float | None = None) -> bool:
@@ -1858,16 +1931,21 @@ def dataset_phase(torch, counts, reset_counts) -> tuple[dict, dict]:
 
     def render_inputs(midi, max_seconds=None):
         sched, n_samples = dd._render_inputs(midi, params, chunk, max_seconds)
-        k_pad = max(16, 1 << (len(sched) - 1).bit_length())
-        return sched, n_samples, dd._note_tensors(sched, "cuda", k_pad)
+        return sched, n_samples, dd._file_notes(sched, "cuda")
 
-    # (a) the kernel's signal mode on the first file's own signal
-    sched, n_samples, notes = render_inputs(midis[0])
-    signal = dd._render_core(*notes, n_samples, params.sr, dd.DEFAULT_MASTER_GAIN)[None, :]
-    kernel = agc_signal_cases(torch, torch.Generator(device="cuda").manual_seed(SEED), signal)
-    del signal
+    # (a) the kernel's signal mode on the corpus's own signals, rendered into
+    # one zero-padded batch as the device route renders them
+    files = [render_inputs(midi) for midi in midis]
+    own = [n_samples // chunk for _, n_samples, _ in files]
+    batch = torch.zeros((len(files), max(own) * chunk), device="cuda")
+    for b_row, (_, n_samples, notes) in zip(batch, files):
+        dd._render_core(*notes, n_samples, params.sr, dd.DEFAULT_MASTER_GAIN, out=b_row[:n_samples])
+    kernel = agc_signal_cases(torch, torch.Generator(device="cuda").manual_seed(SEED),
+                              batch[:1, : own[0] * chunk], batch, own)
+    del batch
 
     # (b) the device route over the corpus: the main path of this phase
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1882,55 +1960,68 @@ def dataset_phase(torch, counts, reset_counts) -> tuple[dict, dict]:
     frames = len(data) // row
     check(len(data) == frames * row and frames > 0 and bool(np.isfinite(data).all()),
           f"device route: {len(data)} floats, not finite rows of {row}")
-    check(path_signal == len(paths), f"device route: {path_signal} agc_signal launches for {len(paths)} files")
+    batches = -(-len(paths) // n_sms)
+    check(path_signal == batches,
+          f"device route: {path_signal} agc_signal launches for {len(paths)} files, not one a batch of at most one "
+          f"row an SM ({batches})")
     rows = data.reshape(frames, row)
     check(set(np.unique(rows[:, params.n_buckets:])) <= {0.0, 1.0} and rows[:, params.n_buckets:].sum() > 0,
           "device route: targets not binary or all zero")
-    # its split by stage, file by file again: render and AGC by CUDA events,
-    # windows + VQT (to the host) and labels by the host clock
+    # the same rows file by file (annotate_midi_device: one launch a file)
+    one_by_one = np.concatenate([ds.generate_data_row(active, spec, params.n_buckets)
+                                 for midi in midis for active, spec in dd.annotate_midi_device(midi, vqt, params)])
+    check(np.array_equal(data, one_by_one), "device route: the batched rows differ from the file-by-file route's")
+    # its split by stage, as the route runs it: each file's render into its
+    # row of the batch, the batch's AGC (one launch) by CUDA events; each
+    # file's windows + VQT (to the host) and labels by the host clock
     split = {"render": 0.0, "agc": 0.0, "windows_vqt": 0.0, "labels": 0.0}
-    notes_total = 0
-    for midi in midis:
-        sched, n_samples, notes = render_inputs(midi)
-        notes_total += len(sched)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    notes_total = sum(len(sched) for sched, _, _ in files)
+    batch = torch.zeros((len(files), max(own) * chunk), device="cuda")
+    for b_row, (_, n_samples, notes) in zip(batch, files):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
-        sig = dd._render_core(*notes, n_samples, params.sr, dd.DEFAULT_MASTER_GAIN)
+        dd._render_core(*notes, n_samples, params.sr, dd.DEFAULT_MASTER_GAIN, out=b_row[:n_samples])
         ev[1].record()
-        processed, gains = agc_mod.agc_signal(sig[None, :], chunk, dd.TRAIN_AGC)
-        ev[2].record()
         torch.cuda.synchronize()
         split["render"] += ev[0].elapsed_time(ev[1])
-        split["agc"] += ev[1].elapsed_time(ev[2])
-        caps = [c for c in range(1, gains.shape[1] + 1) if c % ds.STEP_SIZE_IN_CHUNKS == 0]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    processed, gains = agc_mod.agc_signal(batch, chunk, dd.TRAIN_AGC)
+    ev[1].record()
+    torch.cuda.synchronize()
+    split["agc"] = ev[0].elapsed_time(ev[1])
+    g_host = gains.cpu().numpy()
+    for i, (sched, n_samples, _) in enumerate(files):
+        caps = [c for c in range(1, own[i] + 1) if c % ds.STEP_SIZE_IN_CHUNKS == 0]
         t = time.perf_counter()
-        windows = ds._slice_windows(processed[0], stride=ds.STEP_SIZE_IN_CHUNKS * chunk, n_caps=len(caps),
-                                    n_fft=params.n_fft)
+        windows = ds._slice_windows(processed[i, :n_samples], stride=ds.STEP_SIZE_IN_CHUNKS * chunk,
+                                    n_caps=len(caps), n_fft=params.n_fft)
         ds._batched_specs(vqt, windows)
         split["windows_vqt"] += (time.perf_counter() - t) * 1e3
         t = time.perf_counter()
-        g_host = gains[0].cpu().numpy()
         for c in caps:
-            dd.active_keys_at(sched, c * chunk / params.sr, float(g_host[c - 1]))
+            dd.active_keys_at(sched, c * chunk / params.sr, float(g_host[i, c - 1]))
         split["labels"] += (time.perf_counter() - t) * 1e3
-    # render and AGC of one file: its device ops and time (the fullest of
+    del batch, processed, gains
+    # render and AGC of the batch: its device ops and time (the fullest of
     # three traces) against its time to its end, then under sync-debug
     # "error": it must not wait for the card
-    sched, n_samples, notes = render_inputs(midis[1])
+    batch_notes = [notes for _, _, notes in files]
+    batch_n = [n_samples for _, n_samples, _ in files]
 
     def render_agc():
-        return dd._render_agc(*notes, n_samples=n_samples, sr=params.sr, chunk=chunk)
+        return dd._render_agc_rows(batch_notes, batch_n, sr=params.sr, chunk=chunk)
 
     traces = [device_trace(torch, render_agc, required=False) for _ in range(3)]
-    file_ops, file_device_ms = max(traces, key=lambda t: t[0])
-    file_wall = []
+    batch_ops, batch_device_ms = max(traces, key=lambda t: t[0])
+    batch_wall = []
     for _ in range(3):
         torch.cuda.synchronize()
         t = time.perf_counter()
         render_agc()
         torch.cuda.synchronize()
-        file_wall.append((time.perf_counter() - t) * 1e3)
-    file_wall_ms = float(np.median(file_wall))
+        batch_wall.append((time.perf_counter() - t) * 1e3)
+    batch_wall_ms = float(np.median(batch_wall))
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1938,24 +2029,48 @@ def dataset_phase(torch, counts, reset_counts) -> tuple[dict, dict]:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+    # a full batch as the route cuts it: one row an SM (the batch's files
+    # over and over), its rows equal to the batch's; its peak device memory
+    # over what was allocated before it
+    check(n_sms * max(batch_n) <= dd.BATCH_SAMPLES, f"{n_sms} rows of {max(batch_n)} samples exceed a batch")
+    ref_out, ref_gains = render_agc()
+    wide_idx = [i % len(files) for i in range(n_sms)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    full_out, full_gains = dd._render_agc_rows([batch_notes[i] for i in wide_idx], [batch_n[i] for i in wide_idx],
+                                               sr=params.sr, chunk=chunk)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t
+    full_peak_gib = (torch.cuda.max_memory_allocated() - before) / 2**30
+    wide_idx = torch.tensor(wide_idx, device="cuda")
+    check(bool(torch.equal(full_out, ref_out[wide_idx])) and bool(torch.equal(full_gains, ref_gains[wide_idx])),
+          f"render and AGC of {n_sms} rows differ from the batch of {len(files)}")
+    del ref_out, ref_gains, full_out, full_gains
+    print(f"device route, render and AGC of a full batch ({n_sms} rows, the batch's files over and over, "
+          f"{n_sms * max(batch_n)} padded samples, at most {dd.BATCH_SAMPLES} a batch): equal to the batch's rows, "
+          f"{full_s:.3f} s, peak device memory {full_peak_gib:.2f} GiB over what was allocated before it")
     device_route = dict(files=len(paths), seconds_per_file=DATASET_SECONDS, frames=frames, wall_s=wall,
                         frames_per_s=frames / wall, s_per_file=wall / len(paths), notes=notes_total,
                         split_ms=split, agc_signal_launches=path_signal, other_launches=path_counts,
-                        peak_gib=peak_gib, file_ops=file_ops, file_device_ms=file_device_ms,
-                        file_wall_ms=file_wall_ms)
+                        peak_gib=peak_gib, batch_ops=batch_ops, batch_device_ms=batch_device_ms,
+                        batch_wall_ms=batch_wall_ms, full_batch_rows=n_sms, full_batch_s=full_s,
+                        full_batch_peak_gib=full_peak_gib)
     numbers["device_route"] = device_route
     print(f"device route (generate_dataset_device, {len(paths)} corpus files of {DATASET_SECONDS:.0f} s, "
           f"{notes_total} notes): {frames} frames in {wall:.3f} s, {frames / wall:.1f} frames/s, "
-          f"{wall / len(paths):.3f} s a file; split over the files (render, AGC by CUDA events; windows + VQT, "
-          f"labels by the host clock): " + json.dumps({k: round(v, 3) for k, v in split.items()})
-          + f" ms; launches: agc_signal {path_signal}, others {path_counts}; peak device memory {peak_gib:.2f} GiB")
-    busy = ("not measured (the profiler traced no device event in 9 tries)" if file_device_ms is None else
-            f"{file_ops} device ops, {file_device_ms:.3f} ms on the card (profiler), the card busy "
-            f"{100 * file_device_ms / file_wall_ms:.1f}% of it")
-    print(f"device route, render and AGC of one file ({len(sched)} notes): {file_wall_ms:.3f} ms to its end (host "
-          f"clock, median of 3); {busy}; the AGC runs on one SM of "
-          f"{torch.cuda.get_device_properties(0).multi_processor_count}")
-    print('device route: render and AGC of one file under set_sync_debug_mode("error"): no host synchronisation')
+          f"{wall / len(paths):.3f} s a file; equal to the file-by-file route's rows; split (each file's render "
+          f"and the batch's AGC by CUDA events; windows + VQT, labels by the host clock): "
+          + json.dumps({k: round(v, 3) for k, v in split.items()})
+          + f" ms; launches: agc_signal {path_signal} (one a batch of at most {n_sms} files), others {path_counts}; "
+          f"peak device memory {peak_gib:.2f} GiB")
+    busy = ("not measured (the profiler traced no device event in 9 tries)" if batch_device_ms is None else
+            f"{batch_ops} device ops, {batch_device_ms:.3f} ms on the card (profiler), the card busy "
+            f"{100 * batch_device_ms / batch_wall_ms:.1f}% of it")
+    print(f"device route, render and AGC of the batch of {len(files)} files ({notes_total} notes): {batch_wall_ms:.3f} ms "
+          f"to its end (host clock, median of 3); {busy}; the AGC runs on {len(files)} SMs of {n_sms}")
+    print('device route: render and AGC of the batch under set_sync_debug_mode("error"): no host synchronisation')
 
     # (c) the host route: native synthesis with the training font, the VQT on the card, then on the CPU
     kw = dict(sound_font_path=font, n_workers=2)
@@ -2063,7 +2178,8 @@ def dataset_phase(torch, counts, reset_counts) -> tuple[dict, dict]:
         replaces="pitchvis_tpu/train/device_dataset.py:226", also_replaces="pitchvis_tpu/train/device_dataset.py:283",
         max_abs_err=kernel["max_abs_err"], ms=kernel["ms"], card_ms=kernel["card_ms"], plain_ms=kernel["plain_ms"],
         plain_at=kernel["plain_at"], bound_ms=kernel["bound_ms"], bound_by=kernel["bound_by"],
-        chain_floor_ms=kernel["chain_floor_ms"], library_ms=None,
+        chain_floor_ms=kernel["chain_floor_ms"], batch_rows=kernel["batch_rows"], batch_ms=kernel["batch_ms"],
+        wide_rows=kernel["wide_rows"], wide_ms=kernel["wide_ms"], library_ms=None,
         launches=path_signal, launches_by_path={"dataset": path_signal},
     )
     return entry, numbers

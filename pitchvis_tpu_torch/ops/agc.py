@@ -275,7 +275,9 @@ def agc_signal(
     chunk (a ragged tail is dropped). The gain starts at 1; a chunk whose
     pre-gain energy is under 1e-6 keeps it. A CUDA tensor goes to the
     kernel's signal mode, one launch for every chunk of every row, without a
-    host synchronisation; a CPU tensor to :func:`agc_signal_plain`."""
+    host synchronisation; each row's chain runs on its own block, so B rows
+    take about the time of the longest. A CPU tensor goes to
+    :func:`agc_signal_plain`."""
     global signal_launches
     if signal.device.type == "cpu":
         return agc_signal_plain(signal, chunk, params)

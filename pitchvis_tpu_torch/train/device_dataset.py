@@ -14,15 +14,20 @@ card as well:
   axis in blocks. A sample's value depends only on its time, and the sum
   over notes is a fixed pairwise tree, so neither depends on the block.
 * **AGC** is the signal mode of the hand-written AGC kernel
-  (``ops/agc.py::agc_signal``, ``csrc/agc.cu``): all chunks of the signal in
+  (``ops/agc.py::agc_signal``, ``csrc/agc.cu``): all chunks of a signal in
   one launch, per-chunk silence freeze, the gain carried from chunk to chunk.
+  :func:`generate_dataset_device` renders its files one at a time into the
+  rows of one zero-padded batch and runs one launch for up to one row an SM
+  (:func:`rows_per_launch`) and BATCH_SAMPLES padded samples: a row's chain
+  is latency-bound, so rows run side by side at the time of one. The zeros after a file's own chunks freeze and
+  change none of its outputs.
 * **Windows + VQT + labels**: the capture windows are views of the AGC'd
   signal on the device, their VQT one batched ``Vqt`` call; the labels are
   read on the host from the note table and the per-chunk gains.
 
 Only MIDI parsing, the note schedule and the labels stay on the host. Render
-and AGC do not synchronise with the host; one file reads its gains and its
-spectra back once each.
+and AGC do not synchronise with the host; a batch reads its gains back once,
+a file its spectra.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from ..core.config import TRAIN_VQT_PARAMETERS, AgcParameters, VqtParameters
 from ..core.device import resolve_device
 from ..ops.agc import agc_signal
 from ..ops.vqt import Vqt
-from ..synth.midi import MidiFile
+from ..synth.midi import MidiFile, load_midi
 from ..synth.synthesizer import _DEFAULT_TIMBRE, _FAMILY_TIMBRES
 from .dataset import STEP_SIZE_IN_CHUNKS, _batched_specs, _chunk_samples, _slice_windows, generate_data_row
 
@@ -177,13 +182,13 @@ DEFAULT_MASTER_GAIN = 0.18
 
 def _render_core(
     t_on, t_off, freq, vel, harmonics, attack, decay, sustain, release, t_cut,
-    n_samples: int, sr: float, master_gain: float,
+    n_samples: int, sr: float, master_gain: float, out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Shared synthesis body ((K,) float32 note tensors -> (n_samples,)
-    float32 mono on their device): ADSR envelope x band-limited harmonic
-    stack x velocity, summed over notes. ``t_cut`` (K,) absolute seconds
-    force-silences evicted voices (the host pool's pop(0), see
-    _polyphony_forced_ends).
+    float32 mono on their device, written into ``out`` where it is given):
+    ADSR envelope x band-limited harmonic stack x velocity, summed over
+    notes. ``t_cut`` (K,) absolute seconds force-silences evicted voices
+    (the host pool's pop(0), see _polyphony_forced_ends).
 
     The time axis goes in blocks of at most RENDER_BLOCK_ELEMENTS / K
     samples. The float32 operations are those of the JAX package's compiled
@@ -210,7 +215,8 @@ def _render_core(
     scale = col(vel) * float(f32(master_gain) * (f32(1.0) / f32(127.0)))
     two_pi = f32(2.0 * math.pi)
     block = max(1, RENDER_BLOCK_ELEMENTS // max(k, 1))
-    out = torch.empty(n_samples, dtype=torch.float32, device=device)
+    if out is None:
+        out = torch.empty(n_samples, dtype=torch.float32, device=device)
     for start in range(0, n_samples, block):
         stop = min(n_samples, start + block)
         t = torch.arange(start, stop, dtype=torch.float32, device=device) * inv_sr  # (Tb,)
@@ -248,6 +254,12 @@ def _note_tensors(sched: NoteSchedule, device, k_pad: int | None = None) -> list
             a = np.concatenate([a, np.full((k_pad - k,) + a.shape[1:], fill, np.float32)])
         out.append(torch.from_numpy(a).to(device))
     return out
+
+
+def _file_notes(sched: NoteSchedule, device) -> list[torch.Tensor]:
+    """_note_tensors of one file, its note table padded to a power of two
+    (at least 16) as the JAX package buckets it."""
+    return _note_tensors(sched, device, max(16, 1 << (len(sched) - 1).bit_length()))
 
 
 def render_schedule_device(
@@ -311,20 +323,21 @@ def active_keys_at(sched: NoteSchedule, t: float, agc_gain: float) -> dict[int, 
     return out
 
 
-def _render_agc(
-    t_on, t_off, freq, vel, harmonics, attack, decay, sustain, release, t_cut,
-    *, n_samples: int, sr: float, chunk: int,
+def _render_agc_rows(
+    notes: list[list[torch.Tensor]], n_samples: list[int], *, sr: float, chunk: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Render the full signal, then AGC it, with no host synchronisation
-    between or inside them: ((n_samples,) processed, (C,) gain after each
-    chunk). The JAX package compiles the two as one program
+    """Render each file's notes (its _note_tensors) into its row of one
+    (F, max n_samples) float32 batch, zero after its own samples, one file
+    at a time so that the render's peak memory does not grow with F; then
+    AGC every row in one launch of the signal mode. ((F, N) processed, (F, N
+    // chunk) gain after each chunk), with no host synchronisation between
+    or inside them; a row's first n_samples // chunk chunks are its file's
+    own. The JAX package compiles render and AGC as one program a file
     (_render_agc_jit)."""
-    sig = _render_core(
-        t_on, t_off, freq, vel, harmonics, attack, decay, sustain, release,
-        t_cut, n_samples, sr, DEFAULT_MASTER_GAIN,
-    )
-    processed, gains = agc_signal(sig[None, :], chunk, TRAIN_AGC)
-    return processed[0], gains[0]
+    rows = torch.zeros((len(notes), max(n_samples)), dtype=torch.float32, device=notes[0][0].device)
+    for row, cols, n in zip(rows, notes, n_samples):
+        _render_core(*cols, n, sr, DEFAULT_MASTER_GAIN, out=row[:n])
+    return agc_signal(rows, chunk, TRAIN_AGC)
 
 
 def _render_inputs(midi: MidiFile, params: VqtParameters, chunk: int, max_seconds: float | None):
@@ -385,13 +398,62 @@ def annotate_midi_device(
     sched, n_samples = _render_inputs(midi, params, chunk, max_seconds)
     if sched is None:
         return []
-    # the note table padded to a power of two, as the JAX package buckets it
-    k_pad = max(16, 1 << (len(sched) - 1).bit_length())
-    processed, gains = _render_agc(
-        *_note_tensors(sched, vqt.device, k_pad), n_samples=n_samples, sr=float(params.sr), chunk=chunk
-    )
-    return _captures(sched, processed, gains.cpu().numpy(), vqt, chunk=chunk,
+    processed, gains = _render_agc_rows([_file_notes(sched, vqt.device)], [n_samples], sr=float(params.sr),
+                                        chunk=chunk)
+    return _captures(sched, processed[0], gains[0].cpu().numpy(), vqt, chunk=chunk,
                      step_size_in_chunks=step_size_in_chunks)
+
+
+# files of one signal-mode launch on the CPU, where no SM count applies (the
+# plain version walks the rows of a batch together, sample by sample)
+CPU_ROWS_PER_LAUNCH = 8
+
+
+def rows_per_launch(device: torch.device) -> int:
+    """Files of one agc_signal launch in generate_dataset_device: one row an
+    SM of the card (multi_processor_count, 132 on the H100), each row's
+    latency-bound chain on an SM of its own; CPU_ROWS_PER_LAUNCH on the
+    CPU."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).multi_processor_count
+    return CPU_ROWS_PER_LAUNCH
+
+
+# padded samples of one batch at most: the batch and its processed copy are
+# float32, so 2 GiB of them on the device whatever the files' lengths (132
+# files of 60 s at 22050 Hz fill two thirds of it; a longer file than this
+# alone is a batch of its own)
+BATCH_SAMPLES = 1 << 28
+
+
+def _batches(files, rows: int):
+    """Consecutive runs of ``files`` ((schedule, n_samples), in order) of at
+    most ``rows`` files and at most BATCH_SAMPLES samples once padded to the
+    longest of the run; a file over BATCH_SAMPLES alone is a run of one."""
+    batch, longest = [], 0
+    for f in files:
+        if batch and (len(batch) == rows or (len(batch) + 1) * max(longest, f[1]) > BATCH_SAMPLES):
+            yield batch
+            batch, longest = [], 0
+        batch.append(f)
+        longest = max(longest, f[1])
+    if batch:
+        yield batch
+
+
+def _renderable_files(midi_paths: list[str], params: VqtParameters, chunk: int, max_seconds: float | None):
+    """(schedule, n_samples) of each file, in order, that parses and renders
+    something; a file that does not parse is reported and skipped, as the
+    reference tolerates it."""
+    for p in midi_paths:
+        try:
+            midi = load_midi(p)
+        except Exception as e:  # mirrors the reference's per-file tolerance
+            print(f"failed to parse midi file {p}: {e}")
+            continue
+        sched, n_samples = _render_inputs(midi, params, chunk, max_seconds)
+        if sched is not None:
+            yield sched, n_samples
 
 
 def generate_dataset_device(
@@ -402,21 +464,22 @@ def generate_dataset_device(
     device="cuda",
 ) -> np.ndarray:
     """data.npy-layout dataset with synthesis + AGC + VQT on the device
-    (the card unless ``device="cpu"``)."""
-    from ..synth.midi import load_midi
-
+    (the card unless ``device="cpu"``): the rows of annotate_midi_device,
+    file after file, with the files' AGC batched (_render_agc_rows, up to
+    rows_per_launch files and BATCH_SAMPLES padded samples a launch)."""
     vqt = Vqt(params, device=device)
+    chunk = _chunk_samples(vqt, int(params.sr))
+    sr = float(params.sr)
     rows: list[np.ndarray] = []
-    for p in midi_paths:
-        try:
-            midi = load_midi(p)
-        except Exception as e:  # mirrors the reference's per-file tolerance
-            print(f"failed to parse midi file {p}: {e}")
-            continue
-        for active, spec in annotate_midi_device(
-            midi, vqt, params, max_seconds=max_seconds_per_file
-        ):
-            rows.append(generate_data_row(active, spec, params.n_buckets))
+    files = _renderable_files(midi_paths, params, chunk, max_seconds_per_file)
+    for batch in _batches(files, rows_per_launch(vqt.device)):
+        processed, gains = _render_agc_rows([_file_notes(sched, vqt.device) for sched, _ in batch],
+                                            [n for _, n in batch], sr=sr, chunk=chunk)
+        gains = gains.cpu().numpy()
+        for i, (sched, n_samples) in enumerate(batch):
+            for active, spec in _captures(sched, processed[i, :n_samples], gains[i, : n_samples // chunk], vqt,
+                                          chunk=chunk, step_size_in_chunks=STEP_SIZE_IN_CHUNKS):
+                rows.append(generate_data_row(active, spec, params.n_buckets))
     data = np.concatenate(rows) if rows else np.zeros(0, np.float32)
     if out_path:
         np.save(out_path, data)

@@ -262,10 +262,11 @@ def test_agc_signal_plain_matches_jax():
 
 
 def test_agc_signal_kernel_emulation_matches_plain():
-    """The signal mode's per-row decomposition (a warp's strided energy and
-    butterfly a chunk, lane 0's recurrence with the gain carried) emulated
-    in NumPy equals the plain version, silent and just-under-threshold
-    chunks included."""
+    """The signal mode's per-row decomposition (the producer warp's freeze
+    flags from the lane-strided energy and butterfly, frozen chunks as x*g
+    across lanes, lane 0's chain on the others with the gain carried)
+    emulated in NumPy equals the plain version, silent and just-under-
+    threshold chunks included."""
     rng = np.random.default_rng(6)
     chunk = 96
     x = _signal(rng, 3, 7, chunk, tail=5)
@@ -274,6 +275,95 @@ def test_agc_signal_kernel_emulation_matches_plain():
     got_out, got_gains = agc_signal_kernel_emulation(x, chunk, k, inv_rms, agc.SILENCE_ENERGY)
     np.testing.assert_array_equal(_bits(got_out), _bits(want_out.numpy()))
     np.testing.assert_array_equal(_bits(got_gains), _bits(want_gains.numpy()))
+
+
+def _scaled_to(seg, energy):
+    """seg scaled so that its float64 energy is ``energy``."""
+    return (seg.astype(np.float64) * np.sqrt(energy / (seg.astype(np.float64) ** 2).sum())).astype(np.float32)
+
+
+def _padded(rows, n):
+    """Rows of unequal lengths, zero-padded at the end to n samples."""
+    out = np.zeros((len(rows), n), np.float32)
+    for i, r in enumerate(rows):
+        out[i, : len(r)] = r
+    return out
+
+
+EMULATION_CHUNK = 96
+
+
+def _emulation_case(case, rng):
+    """(B, N) signal of one case of test_agc_signal_kernel_emulation_cases,
+    chunks of EMULATION_CHUNK, and each row's own length (None: the row
+    fills N)."""
+    c = EMULATION_CHUNK
+    if case == "padded rows":
+        lengths = [7 * c + 5, 3 * c, 5 * c + 50, c]
+        rows = [_chunk(rng, 1, n)[0] for n in lengths]
+        rows[2][c : 2 * c] = 0.0  # a silent chunk inside a shorter row
+        return _padded(rows, 8 * c), lengths
+    if case == "all-silent row":
+        x = _chunk(rng, 3, 5 * c)
+        x[1] = 0.0
+        return x, None
+    if case == "one chunk":
+        return _chunk(rng, 2, c), None
+    if case == "energy either side of 1e-6":
+        x = _chunk(rng, 2, 4 * c)
+        for row, target in ((0, 0.99e-6), (1, 1.01e-6)):
+            x[row, c : 2 * c] = _scaled_to(x[row, c : 2 * c], target)
+            x[row, 3 * c :] = _scaled_to(x[row, 3 * c :], 2e-6 - target)
+        return x, None
+    if case == "tail shorter than a chunk":
+        return _chunk(rng, 2, 4 * c + c - 1), None
+    if case == "gain clamped at k":
+        # quiet chunks raise the gain, a loud one after them clamps it
+        x = (rng.standard_normal((2, 8 * c)) * 1e-3).astype(np.float32)
+        x[:, 5 * c : 6 * c] *= 2000.0
+        x[1, 7 * c + 3] = 40.0
+        return x, None
+    raise ValueError(case)
+
+
+EMULATION_CASES = ["padded rows", "all-silent row", "one chunk", "energy either side of 1e-6",
+                   "tail shorter than a chunk", "gain clamped at k"]
+
+
+@pytest.mark.parametrize("tile", [1024, 40], ids=["tile1024", "tile40"])
+@pytest.mark.parametrize("case", EMULATION_CASES)
+def test_agc_signal_kernel_emulation_cases(case, tile):
+    """The emulated signal mode bit for bit against agc_signal_plain, gains
+    included (a case where the max clamps the update at k among them), with
+    the kernel's tiles of 1024 and with tiles of 40 (each chunk of 96 then
+    three pieces, the last of 16, so that the ring of four slots turns over
+    inside a chunk and the chain's remainder loop runs). Zero-padded rows (one with a ragged tail, which its own run drops): each
+    row's own chunks also equal the plain version run on the row alone, and
+    the chunks of zeros after it freeze."""
+    rng = np.random.default_rng(EMULATION_CASES.index(case) + 10)
+    c = EMULATION_CHUNK
+    x, lengths = _emulation_case(case, rng)
+    k, inv_rms = agc._constants(TRAIN_AGC)
+    want_out, want_gains = agc_signal_plain(torch.from_numpy(x), c, TRAIN_AGC)
+    stats = {}
+    got_out, got_gains = agc_signal_kernel_emulation(x, c, k, inv_rms, agc.SILENCE_ENERGY, tile=tile, stats=stats)
+    np.testing.assert_array_equal(_bits(got_out), _bits(want_out.numpy()))
+    np.testing.assert_array_equal(_bits(got_gains), _bits(want_gains.numpy()))
+    if lengths is not None:
+        for row, n in enumerate(lengths):
+            own_out, own_gains = agc_signal_plain(torch.from_numpy(x[row : row + 1, :n]), c, TRAIN_AGC)
+            m = n // c
+            np.testing.assert_array_equal(_bits(got_out[row, : m * c]), _bits(own_out[0].numpy()))
+            np.testing.assert_array_equal(_bits(got_gains[row, :m]), _bits(own_gains[0].numpy()))
+            # the chunks of zeros after the row's last sample freeze
+            z = -(-n // c)
+            assert (got_gains[row, z:] == got_gains[row, z - 1]).all() and not got_out[row, z * c :].any()
+    if case == "all-silent row":
+        assert (got_gains[1] == 1.0).all() and not got_out[1].any()
+    if case == "energy either side of 1e-6":
+        assert got_gains[0, 1] == got_gains[0, 0] and got_gains[1, 1] != got_gains[1, 0]
+    # the max clamps the update at k in that case alone
+    assert (stats["clamped_steps"] > 0) == (case == "gain clamped at k")
 
 
 @pytest.mark.parametrize("shape", [(0, 500), (3, 99), (2, 100)])

@@ -187,10 +187,13 @@ def _rows(data, n_buckets):
     return np.asarray(data).reshape(-1, n_buckets + 128)
 
 
-def test_generate_dataset_device_matches_jax(tmp_path):
+def test_generate_dataset_device_matches_jax(tmp_path, three_files, capsys):
     """generate_dataset_device on a held note: the rows' targets equal the
     JAX package's, their spectra within DEVICE_DB_TOL, the labelled key's
-    energy at its bin (tests/test_device_dataset.py)."""
+    energy at its bin (tests/test_device_dataset.py). On three files of
+    different lengths with an unparsable one between them (the port's files
+    as rows of one zero-padded batch, the JAX package's file by file): the
+    same rows, targets equal, spectra within DEVICE_DB_TOL."""
     path = str(tmp_path / "m.mid")
     write_midi(path, [(0.0, 3.0, 0, 57, 110)])
     want = _rows(jdd.generate_dataset_device([path], PARAMS, max_seconds_per_file=2.0), PARAMS.n_buckets)
@@ -204,6 +207,101 @@ def test_generate_dataset_device_matches_jax(tmp_path):
         _spectra_close(a, b, DEVICE_DB_TOL)
     labeled = got[got[:, PARAMS.n_buckets + 57] > 0.5]
     assert len(labeled) >= 1 and abs(int(np.argmax(labeled[0, : PARAMS.n_buckets])) - 36) <= 2
+
+    paths, _ = three_files
+    want = _rows(jdd.generate_dataset_device(paths, PARAMS, max_seconds_per_file=DATASET_MAX_SECONDS),
+                 PARAMS.n_buckets)
+    got = _rows(tdd.generate_dataset_device(paths, T_PARAMS, max_seconds_per_file=DATASET_MAX_SECONDS, device="cpu"),
+                PARAMS.n_buckets)
+    assert capsys.readouterr().out.count(f"failed to parse midi file {paths[1]}") == 2
+    assert got.shape == want.shape and len(got) >= 3
+    np.testing.assert_array_equal(got[:, PARAMS.n_buckets:], want[:, PARAMS.n_buckets:])
+    for a, b in zip(want[:, : PARAMS.n_buckets], got[:, : PARAMS.n_buckets]):
+        _spectra_close(a, b, DEVICE_DB_TOL)
+
+
+@pytest.fixture(scope="module")
+def three_files(tmp_path_factory, vqts):
+    """Three MIDI files of 0.9, 1.7 and 2.6 s with an unparsable file after
+    the first, and the rows of annotate_midi_device file by file (the
+    parsable ones, cut at DATASET_MAX_SECONDS)."""
+    tmp = tmp_path_factory.mktemp("three")
+    paths = []
+    for i, secs in enumerate((0.9, 1.7, 2.6)):
+        path = str(tmp / f"{i}.mid")
+        write_midi(path, [(0.0, secs - 0.1, 0, 50 + 5 * i, 100), (secs / 3, secs / 2, 0, 62 + i, 90)])
+        paths.append(path)
+        if i == 0:
+            bad = tmp / "bad.mid"
+            bad.write_bytes(b"not a MIDI file")
+            paths.append(str(bad))
+    _, tv = vqts
+    rows = [tds.generate_data_row(active, spec, PARAMS.n_buckets)
+            for path in paths if not path.endswith("bad.mid")
+            for active, spec in tdd.annotate_midi_device(t_load_midi(path), tv, T_PARAMS,
+                                                         max_seconds=DATASET_MAX_SECONDS)]
+    return paths, np.concatenate(rows)
+
+
+DATASET_MAX_SECONDS = 2.0
+
+
+@pytest.mark.parametrize(
+    "per_launch, batch_samples, calls_want",
+    [(2, tdd.BATCH_SAMPLES, [2, 1]), (tdd.CPU_ROWS_PER_LAUNCH, tdd.BATCH_SAMPLES, [3]),
+     (tdd.CPU_ROWS_PER_LAUNCH, 1, [1, 1, 1])],
+    ids=["two-a-launch", "all-in-one", "each-file-over-the-samples-cap"],
+)
+def test_generate_dataset_device_batches_files_as_file_by_file(three_files, per_launch, batch_samples, calls_want,
+                                                               monkeypatch, capsys):
+    """generate_dataset_device on the CPU (the files rendered into the rows
+    of zero-padded batches, each batch's AGC in one call) returns the same
+    array (np.array_equal) as annotate_midi_device file by file: three files
+    of different lengths, the last cut by max_seconds_per_file, an unparsable
+    file between them reported and skipped; batches of two rows (two AGC
+    calls), one batch of all three (one call), and each file alone when every
+    file is over the batch's samples cap (three calls)."""
+    from pitchvis_tpu_torch.ops import agc
+
+    paths, want = three_files
+    monkeypatch.setattr(tdd, "CPU_ROWS_PER_LAUNCH", per_launch)
+    monkeypatch.setattr(tdd, "BATCH_SAMPLES", batch_samples)
+    calls = []
+
+    def agc_signal(signal, chunk, params):
+        calls.append(signal.shape[0])
+        return agc.agc_signal(signal, chunk, params)
+
+    monkeypatch.setattr(tdd, "agc_signal", agc_signal)
+    before = agc.signal_launches
+    got = tdd.generate_dataset_device(paths, T_PARAMS, max_seconds_per_file=DATASET_MAX_SECONDS, device="cpu")
+    assert f"failed to parse midi file {paths[1]}" in capsys.readouterr().out
+    assert calls == calls_want  # one call a batch of rows
+    assert agc.signal_launches == before  # the plain version launches nothing
+    assert got.dtype == np.float32 and len(got) > 0
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize(
+    "lengths, rows, cap, want",
+    [
+        ([5, 3, 4, 2, 1], 2, 100, [[5, 3], [4, 2], [1]]),  # the rows cap
+        ([5, 3, 4, 2, 1], 8, 12, [[5, 3], [4, 2, 1]]),  # 3 * 5 > 12 ends the first run; 3 * 4 fits
+        ([3, 30, 2, 2], 8, 10, [[3], [30], [2, 2]]),  # a file over the cap alone
+        ([4, 4, 4], 8, 12, [[4, 4, 4]]),  # exactly at the cap
+        ([], 8, 12, []),
+    ],
+    ids=["rows", "padded-samples", "over-the-cap-alone", "at-the-cap", "no-files"],
+)
+def test_dataset_batches_cap_rows_and_padded_samples(lengths, rows, cap, want, monkeypatch):
+    """_batches cuts the files, in order, into runs of at most ``rows`` files
+    whose count times their longest is at most BATCH_SAMPLES; a longer file
+    is a run of its own."""
+    monkeypatch.setattr(tdd, "BATCH_SAMPLES", cap)
+    files = [(f"file {i}", n) for i, n in enumerate(lengths)]
+    got = list(tdd._batches(iter(files), rows))
+    assert [[n for _, n in b] for b in got] == want
+    assert [f for b in got for f in b] == files
 
 
 def test_generate_dataset_host_matches_jax(midi_path, tmp_path, jax_native_lib):

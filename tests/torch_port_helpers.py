@@ -227,9 +227,10 @@ def ring_push_kernel_emulation(buffer, gain, chunk, k, inv_rms, silence, *, src_
     1. the vote: each thread tests its strided chunk samples for non-finite
        values, the block ORs them; a rejected row copies its whole buffer row
        and keeps its gain;
-    2. warp 0: the energy as 32 lanes' strided sums and an xor butterfly, then
-       the recurrence in lane 0 over tiles of ``tile`` samples staged in
-       shared memory, appended at new_buffer[L-T:L];
+    2. warp 0: the energy as 32 lanes' strided sums and an xor butterfly,
+       then a frozen row's x*g across the lanes, any other row's recurrence
+       in lane 0 over tiles of ``tile`` samples staged in shared memory,
+       appended at new_buffer[L-T:L];
     3. the other warps: the shift of buffer[T:L] to new_buffer[0:L-T] as the
        kernel's ``copy_row`` does it, a scalar head to the destination's
        16-byte boundary, aligned float4 stores each built from the two aligned
@@ -346,37 +347,116 @@ def jax_native_lib():
     return jax_native
 
 
-def agc_signal_kernel_emulation(signal, chunk, k, inv_rms, silence):
+def _silence_energy(x):
+    """The pre-gain energy of a chunk as a warp sums it in csrc/agc.cu: 32
+    lanes' float32 sums of x[lane::32] in order, then an xor butterfly;
+    lane 0's value."""
+    lanes = np.zeros(32, np.float32)
+    for lane in range(32):
+        for v in x[lane::32]:
+            lanes[lane] = np.float32(lanes[lane] + np.float32(v * v))
+    for off in (16, 8, 4, 2, 1):
+        lanes = (lanes + lanes[np.arange(32) ^ off]).astype(np.float32)
+    return lanes[0]
+
+
+def agc_signal_kernel_emulation(signal, chunk, k, inv_rms, silence, *, tile=1024, slots=4, stats=None):
     """NumPy emulation, row by row, of the signal mode of
     pitchvis_tpu_torch/csrc/agc.cu (the kernel itself only runs on a CUDA
-    card): one warp a row walks the row's chunks in order; for each chunk the
-    warp's 32 lanes sum the pre-gain energy over strided samples and an xor
-    butterfly, then lane 0 runs the recurrence with the gain carried from the
-    previous chunk (1 before the first) and writes the gain after the chunk.
-    Returns ((B, C * chunk) processed, (B, C) gains)."""
+    card): a block of two warps a row. Chunk c is cut into pieces of
+    ``tile`` samples (its last shorter); piece q of the row lives in slot q
+    % ``slots`` of a ring of slots of tile + 8 floats. The two warps'
+    steps, in an order the kernel's barriers allow:
+
+    1. the producer, ahead of the chain: a chunk's freeze flag as it stages
+       the chunk's first piece (the warp's lane-strided energy and xor
+       butterfly, :func:`_silence_energy`), the first ``slots`` pieces, and,
+       once the consumer has released piece q, its store to the output (the
+       chunk's gain after the chunk's last piece) and the staging of piece q
+       + ``slots`` in that slot;
+    2. the consumer: a frozen piece as x*g across its 32 lanes, the gain
+       held; any other piece through lane 0's chain, eight samples a turn
+       with the next turn's eight loaded first, then the rest one by one,
+       the gain carried from piece to piece and chunk to chunk (1 before the
+       first). Steps where the max clamps the update at k are counted in
+       ``stats["clamped_steps"]`` when ``stats`` is a dict.
+
+    Rows padded with zero chunks go through it as they are. Checks as it
+    goes that the consumer finds each piece in the slot it was staged in,
+    that no slot is restaged before its piece was stored, that the chain's
+    loads stay inside the slot, and that every output float and every gain
+    is written exactly once. Returns ((B, C * chunk) processed, (B, C)
+    gains)."""
     signal = np.asarray(signal, np.float32)
     b_rows, n = signal.shape
     n_chunks = n // chunk
+    per_chunk = -(-chunk // tile)
+    pieces = n_chunks * per_chunk
+    stride = tile + 8
     out = np.zeros((b_rows, n_chunks * chunk), np.float32)
     gains = np.zeros((b_rows, n_chunks), np.float32)
+    out_written = np.zeros(out.shape, np.int64)
+    gains_written = np.zeros(gains.shape, np.int64)
     k32 = np.float32(k)
+
+    def piece(q):
+        c, off = q // per_chunk, (q % per_chunk) * tile
+        return c, off, min(tile, chunk - off)
+
+    clamped = 0
+
+    def step(x, g):
+        nonlocal clamped
+        o = np.float32(x * g)
+        upd = _fma32(_fma32(-np.float32(o * o), inv_rms, 1.0), k, 1.0)
+        clamped += bool(upd < k32)
+        upd = upd if (upd >= k32 or upd != upd) else k32  # max.NaN.f32
+        return o, np.float32(g * upd)
+
     for b in range(b_rows):
+        x = signal[b]
+        ring = np.zeros((slots, stride), np.float32)
+        held = [None] * slots
+        slot_frozen = [False] * slots
+        slot_gain = [None] * slots
+        frozen = False
+
+        def stage(q):
+            nonlocal frozen
+            c, off, m = piece(q)
+            if off == 0:
+                frozen = bool(_silence_energy(x[c * chunk : (c + 1) * chunk]) < np.float32(silence))
+            s = q % slots
+            assert held[s] is None, "a slot restaged before its piece was stored"
+            ring[s, :m] = x[c * chunk + off : c * chunk + off + m]
+            held[s], slot_frozen[s] = q, frozen
+
+        for q in range(min(slots, pieces)):
+            stage(q)
         g = np.float32(1.0)
-        for c in range(n_chunks):
-            x = signal[b, c * chunk : (c + 1) * chunk]
-            lanes = np.zeros(32, np.float32)
-            for lane in range(32):
-                for v in x[lane::32]:
-                    lanes[lane] = np.float32(lanes[lane] + np.float32(v * v))
-            for off in (16, 8, 4, 2, 1):
-                lanes = (lanes + lanes[np.arange(32) ^ off]).astype(np.float32)
-            frozen = bool(lanes[0] < np.float32(silence))
-            for t in range(chunk):
-                o = np.float32(x[t] * g)
-                out[b, c * chunk + t] = o
-                upd = _fma32(_fma32(-np.float32(o * o), inv_rms, 1.0), k, 1.0)
-                upd = upd if (upd >= k32 or upd != upd) else k32
-                if not frozen:
-                    g = np.float32(g * upd)
-            gains[b, c] = g
+        for q in range(pieces):
+            s = q % slots
+            c, off, m = piece(q)
+            assert held[s] == q, "the consumer found another piece in its slot"
+            if slot_frozen[s]:
+                ring[s, :m] = (ring[s, :m] * g).astype(np.float32)
+            else:
+                turns = m // 8
+                assert 8 * turns + 8 <= stride, "the chain's loads leave the slot"
+                for t in range(m):
+                    ring[s, t], g = step(ring[s, t], g)
+            if off + m == chunk:
+                slot_gain[s] = g
+            # the producer, once the slot is released
+            out[b, c * chunk + off : c * chunk + off + m] = ring[s, :m]
+            out_written[b, c * chunk + off : c * chunk + off + m] += 1
+            if off + m == chunk:
+                gains[b, c] = slot_gain[s]
+                gains_written[b, c] += 1
+            held[s] = None
+            if q + slots < pieces:
+                stage(q + slots)
+    assert (out_written == 1).all() and (gains_written == 1).all(), "an output written other than once"
+    if stats is not None:
+        stats["clamped_steps"] = clamped
     return out, gains
