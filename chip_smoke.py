@@ -154,17 +154,37 @@ toolkit (nvcc). Phases, each of which fails the run on any error:
    dB of the oracle and of the time path on 8 frames, power within rtol
    1e-5 of the CPU) and bf16 (power within rtol 1e-3 of the CPU; its dB
    error to the oracle printed), beside the time and pallas paths' ms.
+11. runs the bench, pitchvis_tpu_torch/bench/: first holds the bf16 VQT
+   and the peaks against their plain versions at 512, 1024 and 3840
+   streams, on the default parameters' arrays and on the live rebuild's
+   (quality x 1.1), and one ring push at 512 and 3840 streams, the shapes
+   its paths give them beyond phase 2's; then every ALL_CONFIGS entry once
+   at its own arguments, and bench_train(device_gen=True), each result with
+   the JAX function's keys and metric name and finite positive numbers,
+   nothing skipped, the kernels of its path launched and no other (the
+   time path's VQT is torch.matmul; serial, train and train_corpus launch
+   none) and no plain version called; a call of the offline and serial
+   configs, its enqueue against its wall time, its launches and device ms;
+   every soak leg at its default stream count for
+   3 s and longhaul at 1024 streams for 0.25 minutes (one live rebuild),
+   through their mains, reports under build/bench_phase/ (deleted after)
+   with finite outputs, hops served and device memory, longhaul's memory
+   all freed after its run and its growth in the run counted in hops of
+   the server's outputs; and ``python -m
+   pitchvis_tpu_torch.bench`` (the f32 line, then bf16) and ``python -m
+   pitchvis_tpu_torch.xtask check`` as subprocesses.
 
 It prints a JSON line of the VQT's times by part, one of the analysis step's
 launches and times, one of the output stages' numbers, one of the ML phase's
 (``ml_stage``), one of the rasterizer's (``render``), one of per-kernel
 numbers (``launches`` summed over the pipeline's, the server's, the
 output-stage pipeline's, the ML pipeline's and server's and the render
-path's measured hops and batches and the command line's in-process runs,
-``launches_by_path`` each; the ``agc_signal`` entry's over the device
-route's files), one of the dataset phase's (``dataset``), one of the
-command line's (``cli``), then the
-nvidia-smi line, and as its last line ``{"ok": true, "device": {...}}``.
+path's measured hops and batches, the command line's in-process runs and
+the bench's configs, soak legs and long-haul run, ``launches_by_path``
+each; the ``agc_signal`` entry's over the device route's files and the
+bench), one of the dataset phase's (``dataset``), one of the command line's
+(``cli``), one of the bench's (``bench``), then the nvidia-smi line, and as
+its last line ``{"ok": true, "device": {...}}``.
 Without CUDA it exits 1 and prints no result.
 """
 
@@ -173,6 +193,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import ctypes
+import gc
 import json
 import os
 import subprocess
@@ -354,6 +375,29 @@ def peaks_masks_against_plain(torch, label, xs, bpo) -> int:
     print(f"peaks selection on {label}: masks equal to the plain version for 2 and 1 configurations, "
           f"suppress_iterations None and 1 ({int(got[None][0].sum())} peaks under the general configuration)")
     return unconverged
+
+
+def push_against_plain(torch, label, ring, xs) -> float:
+    """The AGC kernel's ring mode (one ring_push) against ring_push_plain,
+    torch.equal, on copies in host memory, where no kernel runs (its AGC
+    step there is agc_chunk_plain), and on the card (where its AGC step is
+    the chunk mode). Returns the largest difference to the host's."""
+    from pitchvis_tpu_torch.ops import agc as agc_mod
+    from pitchvis_tpu_torch.stream.ring import RingState, ring_push, ring_push_plain
+
+    before = agc_mod.launches
+    got = ring_push(ring, xs)
+    check(agc_mod.launches == before + 1, f"ring push on {label}: a CUDA tensor did not reach the kernel")
+    want = ring_push_plain(RingState(buffer=ring.buffer.cpu(), gain=ring.gain.cpu()), xs.cpu())
+    got_buffer, got_gain = got.buffer.cpu(), got.gain.cpu()
+    same = bool(torch.equal(got_buffer, want.buffer)) and bool(torch.equal(got_gain, want.gain))
+    on_card = ring_push_plain(ring, xs)
+    same_card = bool(torch.equal(got.buffer, on_card.buffer)) and bool(torch.equal(got.gain, on_card.gain))
+    print(f"ring push on {label}: buffer and gain equal to ring_push_plain on the CPU: {same}, "
+          f"on the card: {same_card}")
+    check(same, f"ring push kernel differs from ring_push_plain on the CPU on {label}")
+    check(same_card, f"ring push kernel differs from ring_push_plain on the card on {label}")
+    return max(float((got_buffer - want.buffer).abs().max()), float((got_gain - want.gain).abs().max()))
 
 
 def bound_ms(bytes_moved: float, ops: float, rate: float) -> tuple[float, str]:
@@ -2510,6 +2554,314 @@ def cli_phase(torch, counts, reset_counts, gen) -> tuple[dict, dict]:
     return cli_launches, numbers
 
 
+SOAK_MINUTES = 0.05  # phase 11: each soak leg's wall time (3 s), at its default stream count
+# phase 11 (0): the stream counts that the bench's paths give the kernels
+# beside phase 2's 2048: the streaming and latency configs and the serve
+# loops (512), the server legs and longhaul (1024), the soak pipeline and
+# capacity legs (3840); the ring push runs at 512 and 3840 (the server legs
+# and longhaul run their AGC natively)
+BENCH_STREAMS = (512, 1024, 3840)
+BENCH_RING_STREAMS = (512, 3840)
+LONGHAUL_STREAMS = 1024  # phase 11: the long-haul run
+LONGHAUL_MINUTES = 0.25
+LONGHAUL_REBUILD_S = 8.0  # one live rebuild inside the run
+LONGHAUL_LEFT_MB = 1.0  # device memory that may stay allocated after the run
+# phase 11: the keys of each config's result beyond metric, value, unit and
+# vs_baseline, and its metric name, as the JAX package's
+# pitchvis_tpu/bench/configs.py returns them (:111, :180, :233-239,
+# :262-263, :279-280, :300-301, :340, :380, :442, :498-503, :578-583)
+BENCH_EXTRA_KEYS = {
+    "latency": ("p95_ms", "pipelined_hop_ms", "n_streams", "server_pipelined_hop_p50_ms",
+                "server_pipelined_hop_p95_ms", "server_multi_hop_ms", "server_multi_k",
+                "serve_loop_gap_p50_ms", "serve_loop_gap_p95_ms"),
+    "train_corpus": ("speedup_vs_serial", "n_workers"),
+    "render": ("raster", "max_balls"),
+}
+BENCH_METRICS = {
+    "offline_vqt": "vqt_frames_per_sec_per_chip",
+    "offline_vqt_bf16": "vqt_bf16_frames_per_sec_per_chip",
+    "streaming": "streaming_realtime_factor_per_chip",
+    "streaming_pallas_bf16": "streaming_pallas_bf16_realtime_factor_per_chip",
+    "streaming_fused": "streaming_fused_realtime_factor_per_chip",
+    "streaming_fused_pallas_bf16": "streaming_fused_pallas_bf16_realtime_factor_per_chip",
+    "streaming_fused_viewer_pallas_bf16": "streaming_fused_viewer_pallas_bf16_realtime_factor_per_chip",
+    "latency": "serving_hop_latency_p50_ms",
+    "analysis": "analysis_frames_per_sec_per_chip",
+    "serial": "led_frames_per_sec_per_chip",
+    "train": "train_labeled_frames_per_sec",
+    "train_device_gen": "train_labeled_frames_per_sec",
+    "train_corpus": "train_corpus_labeled_frames_per_sec",
+    "render": "render_frames_per_sec_per_chip",
+}
+# the kernels each config launches on the card, and no other: the time path
+# runs its VQT as torch.matmul, serial, train and train_corpus run no kernel
+# (the host route), the latency config's server runs its AGC natively
+_HOP = {"vqt", "peaks", "agc"}
+BENCH_KERNELS = {
+    "offline_vqt": {"vqt"}, "offline_vqt_bf16": {"vqt"},
+    "streaming": {"peaks", "agc"}, "streaming_pallas_bf16": _HOP, "streaming_fused": {"peaks", "agc"},
+    "streaming_fused_pallas_bf16": _HOP, "streaming_fused_viewer_pallas_bf16": _HOP, "latency": _HOP,
+    "analysis": {"peaks"}, "serial": set(), "train": set(), "train_device_gen": {"agc_signal"},
+    "train_corpus": set(), "render": {"composite"},
+}
+SOAK_LEGS = ("pipeline", "server", "server_capacity", "serve_loop", "serve_loop_throughput", "serve_loop_cadenced")
+
+
+def bench_subprocess(args) -> tuple[list, float]:
+    """``python -m args`` from the checkout's root: (stdout lines, wall
+    seconds). Fails the run on a non-zero exit; the process has ended on
+    return."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True, cwd=ROOT, env=env,
+                          timeout=300)
+    wall = time.perf_counter() - t
+    check(proc.returncode == 0, f"python -m {' '.join(args)} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout.splitlines(), wall
+
+
+def server_hop_output_mb(torch, n_streams: int) -> float:
+    """MB of device memory that one hop's outputs of the long-haul run's
+    server hold (the cadenced loop publishes them): a StreamServer of
+    ``n_streams`` streams at default parameters, one step_multi(8,
+    per_hop=True), its outputs' distinct storages over 8."""
+    from pitchvis_tpu_torch import VqtParameters
+    from pitchvis_tpu_torch.runtime.server import StreamServer
+
+    srv = StreamServer(n_streams, VqtParameters(), buffer_seconds=2.0, path="pallas", fast=True, device="cuda")
+    try:
+        outs, _ = srv.step_multi(8, dt=1.0 / 60.0, per_hop=True)
+        storages = {}
+        for out in outs:
+            for leaf in leaves(out).values():
+                if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+                    st = leaf.untyped_storage()
+                    storages[st.data_ptr()] = st.nbytes()
+    finally:
+        srv.close()
+    return sum(storages.values()) / 8 / 1e6
+
+
+def kernels_at_bench_shapes(torch) -> float:
+    """Phase 11 (0): each kernel of the bench's hop against its plain
+    version at the shapes and parameter sets that the bench gives it and no
+    earlier phase does: the bf16 VQT and the peaks selection at
+    BENCH_STREAMS, on the default parameters' arrays and on those of the
+    live rebuild's set (quality x 1.1: other filter counts a window), the
+    peaks on each one's spectra; one ring push at BENCH_RING_STREAMS,
+    L=32768, T=367. Returns its seconds."""
+    import dataclasses
+
+    from pitchvis_tpu_torch.core.config import VqtParameters
+    from pitchvis_tpu_torch.kernel.builder import get_kernel
+    from pitchvis_tpu_torch.ops.vqt import make_vqt_arrays, power_to_db
+    from pitchvis_tpu_torch.stream.ring import RingState
+
+    t = time.perf_counter()
+    dev = "cuda"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 11)
+    params = VqtParameters()
+    hop = int(params.sr / 60.0)
+    bpo = params.range.buckets_per_octave
+    frames = synthetic_audio(torch, max(BENCH_STREAMS), params.n_fft, params.sr, gen)
+    for label, pset in (("default", params), ("quality x 1.1", dataclasses.replace(params, quality=params.quality * 1.1))):
+        # the arrays a pipeline or server of the bench builds for the set
+        arrays = make_vqt_arrays(get_kernel(pset), path="pallas", fast=True, device=dev)
+        print(f"vqt arrays ({label}): window sizes {arrays.window_sizes}, filters a window {arrays.nf}")
+        for b in BENCH_STREAMS:
+            power, _, _ = vqt_kernel_against_plain(torch, f"vqt_power_bf16 ({label}) at B={b}", arrays, frames[:b])
+            peaks_masks_against_plain(torch, f"vqt spectra ({label}) at B={b}", power_to_db(power), bpo)
+        del arrays, power
+    del frames
+    for b in BENCH_RING_STREAMS:
+        ring = RingState(buffer=torch.randn((b, params.n_fft), generator=gen, device=dev) * 0.1,
+                         gain=torch.rand(b, generator=gen, device=dev) * 2.0 + 0.1)
+        push_against_plain(torch, f"B={b}, L={params.n_fft}, T={hop}", ring,
+                           synthetic_audio(torch, b, hop, params.sr, gen))
+    del ring
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t
+    print(f"kernels at the bench's shapes: {seconds:.1f} s")
+    return seconds
+
+
+def bench_phase(torch, counts, reset_counts) -> tuple[dict, dict]:
+    """Phase 11: the port's bench (pitchvis_tpu_torch/bench/) on the card.
+    (0) the kernels at the bench's shapes (kernels_at_bench_shapes); (a)
+    every ALL_CONFIGS entry once, and bench_train(device_gen=True), each
+    result with the JAX function's keys and metric name, finite positive
+    numbers, nothing skipped, each config's kernels launched (and no other)
+    and no plain version called; (b) every soak leg at its default stream
+    count for SOAK_MINUTES and longhaul at 1024 streams for 0.25 minutes,
+    through their mains, their reports written under build/bench_phase/
+    (deleted after) and checked, and no device memory of longhaul's left
+    after it; (c) ``python -m pitchvis_tpu_torch.bench``
+    (the two default lines) and ``python -m pitchvis_tpu_torch.xtask check``
+    as subprocesses. Returns (the phase's launches by kernel entry, its
+    numbers)."""
+    import functools
+    import shutil
+
+    from pitchvis_tpu_torch.bench import configs, longhaul, soak
+    from pitchvis_tpu_torch.ops import agc, composite
+
+    def all_counts():
+        return dict(counts(), agc_signal=agc.signal_launches, composite=composite.launches)
+
+    def reset_all():
+        reset_counts()
+        agc.signal_launches = 0
+        composite.launches = 0
+
+    entries = ("vqt_power_bf16", "vqt_power_f32", "peaks", "agc", "composite", "agc_signal")
+    launches = dict.fromkeys(entries, 0)
+
+    def add(c, vqt_entry):
+        launches[vqt_entry] += c["vqt"]
+        for key in ("peaks", "agc", "composite", "agc_signal"):
+            launches[key] += c[key]
+
+    def positive_numbers(result, what):
+        for key, v in result.items():
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                check(bool(np.isfinite(v)) and v > 0, f"{what}: {key} = {v}")
+
+    numbers = {"configs": {}}
+    t_phase = time.perf_counter()
+    numbers["kernels_at_bench_shapes_s"] = kernels_at_bench_shapes(torch)
+    work = os.path.join(ROOT, "build", "bench_phase")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        # (a) the configurations
+        runs = dict(configs.ALL_CONFIGS, train_device_gen=functools.partial(configs.bench_train, device_gen=True))
+        for key, fn in runs.items():
+            reset_all()
+            t = time.perf_counter()
+            with plain_calls() as plain:
+                result = fn()
+            wall = time.perf_counter() - t
+            c = all_counts()
+            print(f"bench {key}: {json.dumps(result)}; launches {c}; {wall:.1f} s")
+            want = {"metric", "value", "unit", "vs_baseline", *BENCH_EXTRA_KEYS.get(key.split("_device")[0], ())}
+            check(set(result) == want, f"bench {key}: keys {sorted(result)}, the JAX function's {sorted(want)}")
+            check(result["metric"] == BENCH_METRICS[key], f"bench {key}: metric {result['metric']}")
+            check("skipped" not in json.dumps(result), f"bench {key}: something was skipped")
+            positive_numbers(result, f"bench {key}")
+            launched = {k for k, v in c.items() if v > 0}
+            check(launched == BENCH_KERNELS[key], f"bench {key}: launched {sorted(launched)}, "
+                                                  f"expected {sorted(BENCH_KERNELS[key])}")
+            check(sum(plain.values()) == 0, f"bench {key}: a plain version ran on the card: {plain}")
+            add(c, "vqt_power_f32" if key == "offline_vqt" else "vqt_power_bf16")
+            numbers["configs"][key] = dict(result, launches=c, wall_s=wall)
+        # a call of the window-timed configs, host against card: the host
+        # clock's enqueue of 32 calls (output + sum) against the window to
+        # its end, and one call's launches and device ms (profiler); where
+        # enqueue and wall meet, the line measures the host, not the card
+        for key, unit in (("offline_vqt", configs.offline_vqt_work(2048, "pallas", False, device="cuda")),
+                          ("offline_vqt_bf16", configs.offline_vqt_work(2048, "pallas", True, device="cuda")),
+                          ("serial", configs.serial_work(2048, device="cuda"))):
+            split = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for i in range(32):
+                    unit(i).sum(dtype=torch.float32)
+                enqueue = time.perf_counter() - t
+                torch.cuda.synchronize()
+                split.append((enqueue / 32 * 1e3, (time.perf_counter() - t) / 32 * 1e3))
+            enq_ms, wall_ms = (float(np.median(v)) for v in zip(*split))
+            ops, dev_ms = device_trace(torch, lambda: unit(1).sum(dtype=torch.float32))
+            numbers["configs"][key].update(call_enqueue_ms=enq_ms, call_wall_ms=wall_ms, call_launches=ops,
+                                           call_device_ms=dev_ms)
+            print(f"bench {key}: a call (its output + sum) enqueues in {enq_ms:.4f} ms and ends in {wall_ms:.4f} ms "
+                  f"(host clock, median of 5 windows of 32); {ops} device ops, {dev_ms:.4f} ms on the card "
+                  f"(profiler, one call)")
+        del unit
+        torch.cuda.empty_cache()
+
+        # (b) the soak legs and the long-haul run
+        soak_path = os.path.join(work, "SOAK_torch.json")
+        reset_all()
+        t = time.perf_counter()
+        with plain_calls() as plain:
+            check(soak.main(["--minutes", str(SOAK_MINUTES), "--out", soak_path]) == 0, "soak.main failed")
+        c = all_counts()
+        with open(soak_path) as f:
+            report = json.load(f)
+        numbers["soak"] = {"wall_s": time.perf_counter() - t, "launches": c}
+        for leg in SOAK_LEGS:
+            r = report.get(leg, {})
+            check("skipped" not in r and "leg" in r, f"soak {leg}: {r}")
+            check(r["outputs_finite"], f"soak {leg}: outputs not finite")
+            served = r["published"] if leg.startswith("serve_loop") else r["hops"]
+            check(served > 0, f"soak {leg}: no hop served")
+            numbers["soak"][leg] = {k: v for k, v in r.items() if k not in ("serving_stats", "loop_stats")}
+        check({k for k, v in c.items() if v > 0} == _HOP, f"soak: launched {c}")
+        check(sum(plain.values()) == 0, f"soak: a plain version ran on the card: {plain}")
+        add(c, "vqt_power_bf16")
+        print(f"soak ({SOAK_MINUTES * 60:.0f} s a leg): launches {c}, {numbers['soak']['wall_s']:.1f} s")
+
+        lh_path = os.path.join(work, "LONGHAUL_torch.json")
+        reset_all()
+        gc.collect()
+        mb_before = torch.cuda.memory_allocated() / 1e6
+        t = time.perf_counter()
+        with plain_calls() as plain:
+            check(longhaul.main(["--streams", str(LONGHAUL_STREAMS), "--minutes", str(LONGHAUL_MINUTES),
+                                 "--rebuild-every-s", str(LONGHAUL_REBUILD_S), "--out", lh_path]) == 0,
+                  "longhaul.main failed")
+        c = all_counts()
+        with open(lh_path) as f:
+            lh = json.load(f)
+        s = lh["summary"]
+        check(s["minutes_recorded"] >= 1 and s["all_outputs_finite"], f"longhaul: {s}")
+        check(all(m["published"] > 0 and m["device_mb"] for m in lh["per_minute"]), f"longhaul: {lh['per_minute']}")
+        check(lh["device_mb_start"] is not None and s["device_mb_end"] > 0, "longhaul: no device memory reported")
+        check({k for k, v in c.items() if v > 0} == {"vqt", "peaks"}, f"longhaul: launched {c}")
+        check(sum(plain.values()) == 0, f"longhaul: a plain version ran on the card: {plain}")
+        add(c, "vqt_power_bf16")
+        wall = time.perf_counter() - t
+        # its device memory: none of it may outlive the run (the server and
+        # its serve loop hold each other, hence the collection); what it grew
+        # by in the run, counted in hops of the server's outputs
+        gc.collect()
+        mb_after = torch.cuda.memory_allocated() / 1e6
+        hop_mb = server_hop_output_mb(torch, LONGHAUL_STREAMS)
+        grown = s["device_mb_end"] - lh["device_mb_start"]
+        numbers["longhaul"] = dict(summary=s, per_minute=lh["per_minute"], device_mb_start=lh["device_mb_start"],
+                                   rss_mb_start=lh["rss_mb_start"], launches=c, wall_s=wall,
+                                   device_mb_before=mb_before, device_mb_after=mb_after, hop_output_mb=hop_mb,
+                                   grown_in_hops=grown / hop_mb)
+        print(f"longhaul ({LONGHAUL_STREAMS} streams, {LONGHAUL_MINUTES} min): {json.dumps(numbers['longhaul'])}")
+        print(f"longhaul device memory: {mb_before:.1f} MB before the run, {mb_after:.1f} MB after it "
+              f"(tol +{LONGHAUL_LEFT_MB} MB); in the run from {lh['device_mb_start']} to {s['device_mb_end']} MB, "
+              f"{grown / hop_mb:.1f} hops of the server's outputs at {hop_mb:.2f} MB a hop")
+        check(mb_after - mb_before <= LONGHAUL_LEFT_MB, "longhaul left device memory allocated after its run")
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # (c) the runner's default lines and the task runner's check
+    lines, wall = bench_subprocess(["pitchvis_tpu_torch.bench"])
+    default = [json.loads(line) for line in lines[-2:]]
+    check([d["metric"] for d in default] == ["vqt_frames_per_sec_per_chip", "vqt_bf16_frames_per_sec_per_chip"],
+          f"bench default lines: {lines[-2:]}")
+    for d in default:
+        positive_numbers(d, "bench default line")
+    numbers["default_lines"] = default
+    print(f"python -m pitchvis_tpu_torch.bench: {lines[-2:]} ({wall:.1f} s)")
+    lines, wall = bench_subprocess(["pitchvis_tpu_torch.xtask", "check"])
+    check(any(line.startswith("check ok:") and line.endswith("VQT kernel launches: 1") for line in lines),
+          f"xtask check: {lines[-3:]}")
+    numbers["xtask_check_s"] = wall
+    print(f"python -m pitchvis_tpu_torch.xtask check: {lines[-1]} ({wall:.1f} s)")
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    print(f"bench phase: {numbers['phase_s']:.1f} s")
+    return launches, numbers
+
+
 def main() -> None:
     import torch
 
@@ -2797,24 +3149,6 @@ def main() -> None:
     # path's shapes with a NaN, an Inf, a -Inf and a silent row, then ragged
     # shapes, a chunk longer than the kernel's tile, unaligned buffer rows and
     # the empty batch
-    def push_against_plain(label, ring, xs):
-        before = agc_mod.launches
-        got = ring_push(ring, xs)
-        check(agc_mod.launches == before + 1, f"ring push on {label}: a CUDA tensor did not reach the kernel")
-        # the plain version on copies in host memory, where no kernel runs
-        # (its AGC step there is agc_chunk_plain), and on the card (where its
-        # AGC step is the chunk mode)
-        want = ring_push_plain(RingState(buffer=ring.buffer.cpu(), gain=ring.gain.cpu()), xs.cpu())
-        got_buffer, got_gain = got.buffer.cpu(), got.gain.cpu()
-        same = bool(torch.equal(got_buffer, want.buffer)) and bool(torch.equal(got_gain, want.gain))
-        on_card = ring_push_plain(ring, xs)
-        same_card = bool(torch.equal(got.buffer, on_card.buffer)) and bool(torch.equal(got.gain, on_card.gain))
-        print(f"ring push on {label}: buffer and gain equal to ring_push_plain on the CPU: {same}, "
-              f"on the card: {same_card}")
-        check(same, f"ring push kernel differs from ring_push_plain on the CPU on {label}")
-        check(same_card, f"ring push kernel differs from ring_push_plain on the card on {label}")
-        return max(float((got_buffer - want.buffer).abs().max()), float((got_gain - want.gain).abs().max()))
-
     def random_ring(b, length):
         return RingState(buffer=torch.randn((b, length), generator=gen, device=dev) * 0.1,
                          gain=torch.rand(b, generator=gen, device=dev) * 2.0 + 0.1)
@@ -2827,22 +3161,22 @@ def main() -> None:
     ring_chunk[6, hop - 1] = float("-inf")
     ring_chunk[7] = 0.0
     n_bad = 3
-    agc_err = max(agc_err, push_against_plain(f"B={B}, L={length}, T={hop} (NaN, Inf, -Inf, silent rows)",
+    agc_err = max(agc_err, push_against_plain(torch, f"B={B}, L={length}, T={hop} (NaN, Inf, -Inf, silent rows)",
                                               ring, ring_chunk))
     small = random_ring(5, 1003)
     small_chunk = synthetic_audio(torch, 5, 1003, sr, gen)
     small_chunk[1, 5] = float("nan")
     small_chunk[2] = 0.0
     for t in (hop, 1003, 1, 4, 0):
-        push_against_plain(f"B=5, L=1003, T={t}", small, small_chunk[:, :t])
+        push_against_plain(torch, f"B=5, L=1003, T={t}", small, small_chunk[:, :t])
     wide = torch.zeros((5, 1003 + 3), device=dev)
     wide[:, 1 : 1 + 1003] = small.buffer
-    push_against_plain("B=5, L=1003, T=367, buffer rows off 16-byte alignment (base and stride)",
+    push_against_plain(torch, "B=5, L=1003, T=367, buffer rows off 16-byte alignment (base and stride)",
                        RingState(buffer=wide[:, 1 : 1 + 1003], gain=small.gain), small_chunk[:, :hop])
     long_ring = random_ring(3, 5000)
     long_chunk = synthetic_audio(torch, 3, 5000, sr, gen)
     for t in (4500, 5000):
-        push_against_plain(f"B=3, L=5000, T={t}", long_ring, long_chunk[:, :t])
+        push_against_plain(torch, f"B=3, L=5000, T={t}", long_ring, long_chunk[:, :t])
     before = agc_mod.launches
     empty = ring_push(RingState(buffer=ring.buffer[:0], gain=ring.gain[:0]), ring_chunk[:0])
     check(tuple(empty.buffer.shape) == (0, length) and agc_mod.launches == before,
@@ -3051,7 +3385,13 @@ def main() -> None:
         kernels[label]["launches_by_path"]["cli"] = cli_counts[label]
         kernels[label]["launches"] = sum(kernels[label]["launches_by_path"].values())
 
+    # ---- 11. the bench --------------------------------------------------------------
+    bench_counts, bench_numbers = bench_phase(torch, counts, reset_counts)
     order = ("vqt_power_bf16", "vqt_power_f32", "peaks", "agc", "composite", "agc_signal")
+    for label in order:
+        kernels[label]["launches_by_path"]["bench"] = bench_counts[label]
+        kernels[label]["launches"] = sum(kernels[label]["launches_by_path"].values())
+
     print(json.dumps({"vqt_times": vqt_times}))
     print(json.dumps({"analysis_step": analysis_profile}))
     print(json.dumps({"output_stages": stage_numbers}))
@@ -3059,6 +3399,7 @@ def main() -> None:
     print(json.dumps({"render": render_numbers}))
     print(json.dumps({"dataset": dataset_numbers}))
     print(json.dumps({"cli": cli_numbers}))
+    print(json.dumps({"bench": bench_numbers}))
     print(json.dumps({"kernels": [kernels[n] for n in order]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -24,6 +24,9 @@ from pitchvis_tpu_torch.io.capture import WavStreamDriver
 from pitchvis_tpu_torch.io.golden import run_chain
 from pitchvis_tpu_torch.io.wav import save_wav
 from pitchvis_tpu_torch.ops.resample import PolyphaseResampler, resample
+from pitchvis_tpu_torch import xtask
+from pitchvis_tpu_torch.bench import configs as bench_configs
+from pitchvis_tpu_torch.bench import longhaul, soak
 
 from conftest import SMALL_PARAMS
 from torch_port_helpers import to_port
@@ -59,7 +62,8 @@ def test_port_files_found():
                    "synth/synthesizer.py", "synth/engine_native.py", "train/dataset.py", "train/device_dataset.py",
                    "train/logistic.py", "train/corpus.py", "utils/signal.py", "io/wav.py", "ops/resample.py",
                    "core/settings.py", "core/tuning.py", "io/keytune.py", "io/alsa.py", "io/capture.py",
-                   "io/golden.py", "io/png.py", "utils/profiling.py", "demo.py"):
+                   "io/golden.py", "io/png.py", "utils/profiling.py", "demo.py", "bench/__init__.py",
+                   "bench/configs.py", "bench/soak.py", "bench/longhaul.py", "bench/__main__.py", "xtask.py"):
         assert os.path.join(ROOT, "pitchvis_tpu_torch", module) in files, module
     assert os.path.exists(os.path.join(ROOT, "pitchvis_tpu_torch", "native", "alsa_stub.c"))
 
@@ -70,14 +74,31 @@ def test_no_jax_imports(path):
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
+BENCH_ENTRIES = ("bench_offline_vqt", "bench_streaming", "bench_latency", "bench_analysis", "bench_serial",
+                 "bench_train", "bench_train_corpus", "bench_render")
+
+
 @pytest.mark.parametrize("entry", ["pipeline", "vqt", "arrays", "server", "train", "model", "render", "dataset",
                                    "device_dataset", "render_schedule", "train_demo", "agc_init", "resampler",
-                                   "resample", "vqt_freq", "run_chain", "wav_driver"])
+                                   "resample", "vqt_freq", "run_chain", "wav_driver", *BENCH_ENTRIES,
+                                   "soak_pipeline", "soak_server", "soak_serve_loop", "longhaul", "xtask_warm"])
 def test_entry_points_raise_without_cuda(entry, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     params = to_port(SMALL_PARAMS)
     with pytest.raises(RuntimeError, match="CUDA"):
-        if entry == "resampler":
+        if entry in BENCH_ENTRIES:
+            getattr(bench_configs, entry)()
+        elif entry == "soak_pipeline":
+            soak.soak_pipeline(2, 0.01, vqt_params=params)
+        elif entry == "soak_server":
+            soak.soak_server(2, 0.01, vqt_params=params)
+        elif entry == "soak_serve_loop":
+            soak.soak_serve_loop(2, 0.01, vqt_params=params)
+        elif entry == "longhaul":
+            longhaul.longhaul(2, 0.01, vqt_params=params, out_path=str(tmp_path / "lh.json"))
+        elif entry == "xtask_warm":
+            xtask.warm(["--small", "--streams", "2"])
+        elif entry == "resampler":
             PolyphaseResampler(44100, 22050, 441)
         elif entry == "resample":
             resample(np.zeros(441, np.float32), 44100, 22050)
