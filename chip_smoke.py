@@ -173,6 +173,28 @@ toolkit (nvcc). Phases, each of which fails the run on any error:
    the server's outputs; and ``python -m
    pitchvis_tpu_torch.bench`` (the f32 line, then bf16) and ``python -m
    pitchvis_tpu_torch.xtask check`` as subprocesses.
+12. serves over a mesh of two slots (pitchvis_tpu_torch/parallel/): two
+   GPUs when the machine has them, else two virtual slots on card 0, which
+   it prints. (a) each kernel against its plain version at a slot's shapes
+   (the VQT in f32 and bf16, the peaks selection and one ring push at 1024
+   rows of 2048, the composite's cases at 32 streams); (b)
+   make_sharded_pipeline_step at B=2048 for 8 hops of phase 3's audio,
+   torch.equal to pipeline_step in state and outputs, one hop under
+   set_sync_debug_mode("error"); (c) StreamServer(2048, path="pallas",
+   fast=True, mesh=) against StreamServer(2048) on the same pushes,
+   torch.equal in outputs and gains, stats equal: 8 hops, a hop under
+   set_sync_debug_mode("error"), step_multi(4) after a reset,
+   step_multi(4, per_hop=True), pipelined hops and flush, a checkpoint
+   restored with restore_server(mesh=), snapshot ingest; 16 hops of each
+   timed in turns, the mesh hop's enqueue and its device ops and time;
+   serve(rate_hz=60) and serve(hops_per_dispatch=4, publish="per_hop") for
+   2 s each beside a producer; (d) render_batch of 64 streams at 640x360
+   sharded over the mesh, torch.equal to the unsharded render, 5 batches
+   of each timed in turns; (e) ``python -m
+   pitchvis_tpu_torch.runtime.multihost_serve --spawn 2 --streams-per-host
+   1024 --seconds 3 --path pallas --fast`` as a subprocess (two processes
+   joined by gloo, both on this machine's GPUs), its line read (2 hosts,
+   2048 streams, a positive rate).
 
 It prints a JSON line of the VQT's times by part, one of the analysis step's
 launches and times, one of the output stages' numbers, one of the ML phase's
@@ -183,8 +205,10 @@ path's measured hops and batches, the command line's in-process runs and
 the bench's configs, soak legs and long-haul run, ``launches_by_path``
 each; the ``agc_signal`` entry's over the device route's files and the
 bench), one of the dataset phase's (``dataset``), one of the command line's
-(``cli``), one of the bench's (``bench``), then the nvidia-smi line, and as
-its last line ``{"ok": true, "device": {...}}``.
+(``cli``), one of the bench's (``bench``), one of the mesh's
+(``multigpu``; ``launches_by_path`` of every kernel gains ``multigpu``),
+then the nvidia-smi line, and as its last line ``{"ok": true, "device":
+{...}}``.
 Without CUDA it exits 1 and prints no result.
 """
 
@@ -1370,11 +1394,12 @@ def ml_phase(torch, counts, reset_counts, gen) -> tuple[dict, dict]:
     return path_counts, numbers
 
 
-def composite_cases(torch, gen) -> dict:
+def composite_cases(torch, gen, full_b: int = 64) -> dict:
     """Phase 8 (a): the composite kernel against composite_patches_plain on
     the card, torch.equal, in every case the render can give it; its time,
     the plain version's and the kernel's time on the card alone at the main
-    path's shapes (64 streams of 640x360, 64 patches of 96 x 96)."""
+    path's shapes (``full_b`` = 64 streams of 640x360, 64 patches of 96 x
+    96; phase 12 runs it at a slot's 32 streams). On the current device."""
     from pitchvis_tpu_torch.ops import composite as comp
 
     dev = "cuda"
@@ -1394,9 +1419,9 @@ def composite_cases(torch, gen) -> dict:
             sj = torch.randint(0, 2, (b, k), generator=gen, device=dev) * (hp - p)
         return img, rgb, a, si.to(torch.int32), sj.to(torch.int32)
 
+    full = f"full size: B={full_b}, K=64, P=96, 640x360, all patches visible and overlapping"
     cases = {
-        "full size: B=64, K=64, P=96, 640x360, all patches visible and overlapping":
-            inputs(64, 64, 96, 360, 640, "overlapping"),
+        full: inputs(full_b, 64, 96, 360, 640, "overlapping"),
         "B=1, K=1": inputs(1, 1, 96, 360, 640, "overlapping"),
         "the golden's 160x96 padded raster, K=16, P=48": inputs(3, 16, 48, 96, 160, "overlapping"),
         "origins at both edges": inputs(5, 24, 40, 90, 130, "edges"),
@@ -1417,7 +1442,7 @@ def composite_cases(torch, gen) -> dict:
     print(f"composite kernel equal (torch.equal) to composite_patches_plain on the card in {len(cases)} cases: "
           + "; ".join(cases))
 
-    img, rgb, a, si, sj = cases["full size: B=64, K=64, P=96, 640x360, all patches visible and overlapping"]
+    img, rgb, a, si, sj = cases[full]
     b, k, p = a.shape[0], a.shape[1], a.shape[2]
     ms = time_ms(torch, lambda: comp.composite_patches(img, rgb, a, si, sj))
     plain_ms = time_ms(torch, lambda: comp.composite_patches_plain(img, rgb, a, si, sj), reps=3, inner=2)
@@ -2862,6 +2887,400 @@ def bench_phase(torch, counts, reset_counts) -> tuple[dict, dict]:
     return launches, numbers
 
 
+MESH_B = 2048  # phase 12: the streams over the two-slot mesh
+MESH_HOPS = 8  # phase 12 (b), (c): hops held to torch.equal against one device
+MESH_TIMED_HOPS = 16  # phase 12 (c): timed hops of each server
+MESH_RENDER_STREAMS = 64  # phase 12 (d)
+MESH_RENDER_REPS = 5
+MESH_RECIPE_STREAMS = 1024  # phase 12 (e): streams a host process
+MESH_RECIPE_S = 3.0
+
+
+def tree_diff(torch, a, b, path="outputs") -> str | None:
+    """The first leaf (by path) where two trees of tensors, Sharded values,
+    tuples, dataclasses and None differ (torch.equal, Sharded leaves
+    gathered to the host), or None when they are equal."""
+    import dataclasses
+
+    from pitchvis_tpu_torch.parallel.sharding import Sharded
+
+    if a is None or b is None:
+        return None if a is None and b is None else path
+    if isinstance(a, (torch.Tensor, Sharded)):
+        x, y = a.cpu(), b.cpu()
+        if x.shape == y.shape and torch.equal(x, y):
+            return None
+        d = (x.double() - y.double()).abs().max() if x.shape == y.shape and x.numel() else "shape"
+        return f"{path} (max |diff| {d})"
+    if isinstance(a, tuple):
+        if len(a) != len(b):
+            return path
+        return next((r for i, (x, y) in enumerate(zip(a, b)) if (r := tree_diff(torch, x, y, f"{path}[{i}]"))), None)
+    return next((r for f in dataclasses.fields(a)
+                 if (r := tree_diff(torch, getattr(a, f.name), getattr(b, f.name), f"{path}.{f.name}"))), None)
+
+
+def multigpu_phase(torch, params, audio, counts, reset_counts) -> tuple[dict, dict]:
+    """Phase 12: multi-device serving over a mesh of two slots, two GPUs
+    when the machine has them, else two virtual slots on card 0. (a) each
+    kernel at a slot's shapes against its plain version; (b)
+    make_sharded_pipeline_step on the phase-3 audio against pipeline_step,
+    torch.equal, one hop under set_sync_debug_mode("error"); (c)
+    StreamServer(2048, mesh=) against StreamServer(2048) on the same
+    pushes, torch.equal, through step, step_multi(4) after a reset,
+    per_hop, pipelined + flush, snapshot ingest and a checkpoint restored
+    over the mesh, then timed beside each other and served by both loop
+    modes; (d) the sharded render of 64 streams at 640x360 against the
+    unsharded; (e) the multi-host recipe, two processes, as a subprocess.
+    Each path through the mesh runs with the counts set to 0 just before it
+    and read just after. Returns (its launches by kernel entry, its
+    numbers)."""
+    import shutil
+
+    from pitchvis_tpu_torch import StreamServer, StreamingPipeline, get_kernel, init_pipeline_state, make_vqt_arrays
+    from pitchvis_tpu_torch.models import render as render_mod
+    from pitchvis_tpu_torch.models.pipeline import pipeline_step
+    from pitchvis_tpu_torch.ops import composite as comp
+    from pitchvis_tpu_torch.ops import vqt_pallas as vqt_mod
+    from pitchvis_tpu_torch.ops.vqt import power_to_db
+    from pitchvis_tpu_torch.parallel.sharding import (
+        Mesh, Sharded, device_scope, make_mesh, make_sharded_pipeline_step, replicate, shard_batch, stream_sharding,
+    )
+    from pitchvis_tpu_torch.runtime.checkpoint import restore_server, save_server_state
+    from pitchvis_tpu_torch.stream.ring import RingState
+
+    t_phase = time.perf_counter()
+    real = torch.cuda.device_count() >= 2
+    mesh = make_mesh(2) if real else Mesh([torch.device("cuda", 0)] * 2)
+    slots = "two GPUs" if real else "two virtual slots on one card (cuda:0 twice)"
+    print(f"multigpu: mesh {mesh}: {slots}")
+    sr = params.sr
+    hop = int(sr / 60.0)
+    dt = hop / sr
+    slices = stream_sharding(mesh).local_slices(MESH_B)
+    devices = list(dict.fromkeys(d for d, _, _ in slices))
+    kernel = get_kernel(params)
+    numbers = {"mesh": [str(d) for d in mesh.local_devices], "slots": "real" if real else "virtual"}
+    launches = {k: 0 for k in ("vqt_power_bf16", "vqt_power_f32", "peaks", "agc", "composite", "agc_signal")}
+
+    def counted(fn):
+        """``fn()`` with the counts set to 0 just before and read just after,
+        added to the phase's launches."""
+        reset_counts()
+        comp.launches = 0
+        result = fn()
+        c = counts()
+        launches["vqt_power_bf16"] += c["vqt"]
+        launches["peaks"] += c["peaks"]
+        launches["agc"] += c["agc"]
+        launches["composite"] += comp.launches
+        return result
+
+    # (a) each kernel at a slot's shapes, against its plain version (not counted)
+    gens = {d: torch.Generator(device=d) for d in devices}
+    for i, d in enumerate(devices):
+        gens[d].manual_seed(SEED + 12 + i)
+    frames = synthetic_audio(torch, MESH_B, params.n_fft, sr, gens[devices[0]])
+    for d, start, stop in slices:
+        rows = f"rows {start}-{stop} on {d}"
+        with device_scope(d):
+            x = frames[start:stop].to(d)
+            for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                arrays = vqt_mod.PallasVqtArrays.from_kernel(kernel, dtype=dtype, device=d)
+                power, _, _ = vqt_kernel_against_plain(torch, f"multigpu: vqt {label}, {rows}", arrays, x)
+            peaks_masks_against_plain(torch, f"multigpu: the bf16 spectra, {rows}", power_to_db(power),
+                                      params.range.buckets_per_octave)
+            gain = torch.rand(stop - start, generator=gens[d], device=d) * 2.0 + 0.25
+            push_against_plain(torch, f"multigpu: a ring of {rows}, the phase-3 chunk (a NaN and a silent row)",
+                               RingState(buffer=x.clone(), gain=gain), audio[start:stop, :hop].to(d))
+    for d in devices:
+        with device_scope(d):
+            composite_cases(torch, gens[d], full_b=RENDER_STREAMS // 2)
+    del frames, x, power
+    numbers["kernels_at_slot_shapes"] = "equal within the phase-2 and phase-8 tolerances"
+
+    # (b) the sharded pipeline step on the phase-3 audio
+    arrays = make_vqt_arrays(kernel, path="pallas", fast=True, device=devices[0])
+    arrays_r = replicate(mesh, arrays)
+    step = make_sharded_pipeline_step(mesh, vqt_params=params, path="pallas")
+    state0 = init_pipeline_state(MESH_B, params, device=devices[0])
+    chunks = [shard_batch(mesh, audio[:, h * hop : (h + 1) * hop]) for h in range(MESH_HOPS + 1)]
+
+    def sharded_hops():
+        state, outs = shard_batch(mesh, state0), []
+        for h in range(MESH_HOPS):
+            state, out = step(arrays_r, state, chunks[h], dt)
+            outs.append(out)
+        return state, outs
+
+    torch.cuda.synchronize()
+    before = dict(launches)
+    state_s, outs_s = counted(sharded_hops)
+    step_launches = {k: launches[k] - before[k] for k in ("vqt_power_bf16", "peaks", "agc")}
+    want = {"vqt_power_bf16": 2 * MESH_HOPS, "peaks": 4 * MESH_HOPS, "agc": 2 * MESH_HOPS}
+    check(step_launches == want, f"multigpu: sharded step launches {step_launches}, expected {want}")
+    state = state0
+    for h in range(MESH_HOPS):
+        state, ref = pipeline_step(arrays, state, audio[:, h * hop : (h + 1) * hop], dt, vqt_params=params,
+                                   path="pallas")
+        diff = tree_diff(torch, outs_s[h], ref)
+        check(diff is None, f"multigpu: the sharded step differs from pipeline_step at hop {h}: {diff}")
+    diff = tree_diff(torch, state_s, state, "state")
+    check(diff is None, f"multigpu: the sharded step's state differs: {diff}")
+    check(isinstance(outs_s[-1].x_vqt, Sharded) and outs_s[-1].x_vqt.devices == mesh.local_devices,
+          "multigpu: the sharded step's outputs are not split over the mesh")
+    check(float(state_s.ring.gain[7]) == 1.0, "multigpu: the silent stream's gain moved")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        counted(lambda: step(arrays_r, state_s, chunks[MESH_HOPS], dt))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"multigpu: make_sharded_pipeline_step, {MESH_HOPS} hops at B={MESH_B} (path=pallas, fast=True): state "
+          f"and outputs equal to pipeline_step (torch.equal); launches {step_launches}; one hop under "
+          f'set_sync_debug_mode("error"): no host synchronisation')
+    numbers["sharded_step"] = dict(hops=MESH_HOPS, equal=True, launches=step_launches)
+    del outs_s, state_s, state, state0, chunks, ref
+    torch.cuda.empty_cache()
+
+    # (c) the server over the mesh against the server on one device
+    warm = int(sr)
+    n_blocks = 48
+    host = synthetic_audio(torch, MESH_B, warm + n_blocks * hop, sr, gens[devices[0]]).cpu().numpy()
+    host[7] = 0.0
+    blocks = [host[:, warm + i * hop : warm + (i + 1) * hop].copy() for i in range(n_blocks)]
+    for block in blocks:
+        block[5, 100] = np.nan
+        block[MESH_B // 2 + 5, 200] = np.nan  # one rejected row in each slot
+    kw = dict(path="pallas", fast=True)
+    srv = {"mesh": StreamServer(MESH_B, params, mesh=mesh, **kw), "one": StreamServer(MESH_B, params, device="cuda", **kw)}
+    nxt = iter(range(10**6))
+
+    def push(n=1):
+        for _ in range(n):
+            block = blocks[next(nxt) % n_blocks]
+            for s in srv.values():
+                s.push_batch(block)
+
+    def both(call, what):
+        got = counted(lambda: call(srv["mesh"]))
+        want = call(srv["one"])
+        if got is None or want is None:
+            check(got is None and want is None, f"multigpu server: {what}: one result is None")
+            return got
+        diff = tree_diff(torch, got[0], want[0])
+        check(diff is None, f"multigpu server: {what}: the mesh server differs from one device: {diff}")
+        check(np.array_equal(got[1], want[1]), f"multigpu server: {what}: gains differ")
+        return got
+
+    for s in srv.values():
+        s.push_batch(host[:, :warm])
+    both(lambda s: s.step(dt=dt), "the warm-up hop")
+    for h in range(MESH_HOPS):
+        push()
+        out, _ = both(lambda s: s.step(dt=dt), f"hop {h}")
+        check(all(bool(torch.isfinite(getattr(out, k).cpu()).all()) for k in ("x_vqt_smoothed", "calmness")),
+              f"multigpu server: non-finite outputs at hop {h}")
+    check(isinstance(out.peaks, Sharded) and out.peaks.devices == mesh.local_devices,
+          "multigpu server: the outputs are not split over the mesh")
+    check(int(out.peaks.cpu().sum()) > 0, "multigpu server: no peaks")
+    push()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = counted(lambda: srv["mesh"].step(dt=dt))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = srv["one"].step(dt=dt)
+    check(tree_diff(torch, got[0], want[0]) is None, "multigpu server: the sync-debug hop differs")
+    for s in srv.values():
+        s.reset_stream(MESH_B // 2 + 2)  # a row of the second slot
+    push(4)
+    both(lambda s: s.step_multi(4), "step_multi(4) after reset_stream")
+    push(4)
+    both(lambda s: s.step_multi(4, per_hop=True), "step_multi(4, per_hop=True)")
+    for i in range(3):
+        push()
+        both(lambda s: s.step(pipelined=True, dt=dt), f"pipelined hop {i}")
+    both(lambda s: s.flush(), "flush")
+    check(srv["mesh"].stats == srv["one"].stats, f"multigpu server: stats differ: {srv['mesh'].stats} / {srv['one'].stats}")
+    print(f'multigpu: StreamServer({MESH_B}, path="pallas", fast=True, mesh=) against StreamServer({MESH_B}) on the '
+          f"same pushes (a NaN row a slot, a silent row): {MESH_HOPS} hops, a hop under set_sync_debug_mode"
+          f'("error"), step_multi(4) after a reset, per_hop, 3 pipelined hops + flush: outputs and gains equal '
+          f"(torch.equal), stats equal {json.dumps(srv['mesh'].stats)}")
+
+    # timed beside each other, in turns: the hop to its end, and its enqueue
+    def timed_step(name, wait):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if name == "mesh":
+            counted(lambda: srv["mesh"].step(dt=dt))
+        else:
+            srv["one"].step(dt=dt)
+        if wait:
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    hop_ms = {"mesh": [], "one": []}
+    enqueue_ms = {"mesh": [], "one": []}
+    for h in range(MESH_TIMED_HOPS + 5):
+        push()
+        for name in (("mesh", "one") if h % 2 == 0 else ("one", "mesh")):
+            if h < MESH_TIMED_HOPS:
+                hop_ms[name].append(timed_step(name, wait=True))
+            else:
+                enqueue_ms[name].append(timed_step(name, wait=False))
+    torch.cuda.synchronize()
+    hop_ops, hop_device_ms = max(counted(lambda: device_trace(torch, lambda: srv["mesh"].step(dt=dt)))
+                                 for _ in range(2))
+    one_ops, one_device_ms = max(device_trace(torch, lambda: srv["one"].step(dt=dt)) for _ in range(2))
+    server_numbers = {}
+    for name, ms in hop_ms.items():
+        server_numbers[name] = dict(median_ms=float(np.median(ms)), min_ms=min(ms), max_ms=max(ms),
+                                    realtime=MESH_B * dt * 1e3 / float(np.median(ms)))
+    server_numbers["mesh"].update(enqueue_ms=float(np.median(enqueue_ms["mesh"])), device_ops=hop_ops,
+                                  device_ms=hop_device_ms)
+    server_numbers["one"].update(enqueue_ms=float(np.median(enqueue_ms["one"])), device_ops=one_ops,
+                                 device_ms=one_device_ms)
+    print(f"multigpu: server hop at B={MESH_B}, {MESH_TIMED_HOPS} hops each in turns (host clock with a "
+          f"synchronize): mesh median {server_numbers['mesh']['median_ms']:.3f} ms (min "
+          f"{server_numbers['mesh']['min_ms']:.3f}, max {server_numbers['mesh']['max_ms']:.3f}), one device "
+          f"{server_numbers['one']['median_ms']:.3f} (min {server_numbers['one']['min_ms']:.3f}, max "
+          f"{server_numbers['one']['max_ms']:.3f}); the mesh hop enqueues in {server_numbers['mesh']['enqueue_ms']:.3f} "
+          f"ms (median of 5; one device {server_numbers['one']['enqueue_ms']:.3f}), {hop_ops} device ops and "
+          f"{hop_device_ms:.3f} ms on the card (profiler; one device: {one_ops} ops, {one_device_ms:.3f} ms)")
+
+    # a checkpoint of the mesh server, restored over the mesh
+    ckpt = os.path.join(ROOT, "build", "multigpu_phase", "ckpt")
+    try:
+        save_server_state(ckpt, srv["mesh"])
+        restored = restore_server(ckpt, mesh=mesh)
+        check(isinstance(restored.analysis_state.x_vqt_smoothed, Sharded), "multigpu: restored carries not split")
+        block = blocks[next(nxt) % n_blocks]
+        for s in (srv["mesh"], restored):
+            s.push_batch(block)
+        got, want = counted(lambda: (restored.step(dt=dt), srv["mesh"].step(dt=dt)))
+        diff = tree_diff(torch, got[0], want[0])
+        check(diff is None and np.array_equal(got[1], want[1]), f"multigpu: the restored server differs: {diff}")
+        restored.close()
+    finally:
+        shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
+    print("multigpu: save_server_state of the mesh server, restore_server(mesh=): the next hop equal (torch.equal)")
+
+    # both loop modes on the mesh server, beside a producer at the audio rate
+    loops = {}
+    for mode, loop_kw in (("latest", dict(rate_hz=60.0, pipelined=True)),
+                          ("per_hop", dict(rate_hz=60.0, hops_per_dispatch=4, publish="per_hop"))):
+        stop = threading.Event()
+
+        def produce():
+            next_t = time.monotonic()
+            i = 0
+            while not stop.is_set():
+                srv["mesh"].push_batch(blocks[i % n_blocks])
+                i += 1
+                next_t += dt
+                stop.wait(max(0.0, next_t - time.monotonic()))
+
+        def serve():
+            producer = threading.Thread(target=produce, daemon=True)
+            producer.start()
+            loop = srv["mesh"].serve(**loop_kw)
+            seq, last = 0, None
+            t_end = time.monotonic() + LOOP_S
+            try:
+                while time.monotonic() < t_end:
+                    last = loop.wait_next(seq, timeout=2.0)
+                    check(last is not None, f"multigpu serve loop ({mode}) published nothing for 2 s")
+                    seq = last[0]
+            finally:
+                loop.stop()
+                stop.set()
+                producer.join(timeout=10.0)
+            check(not producer.is_alive(), "multigpu: the producer thread did not stop")
+            return loop, last
+
+        loop, last = counted(serve)
+        check(loop.error is None and loop.stats["published"] > 0, f"multigpu serve loop ({mode}): {loop.stats}")
+        check(bool(torch.isfinite(last[1].x_vqt_smoothed.cpu()).all()), f"multigpu serve loop ({mode}): non-finite")
+        loops[mode] = dict(loop.stats)
+        print(f"multigpu: serve loop on the mesh server {json.dumps(loop_kw)} for {LOOP_S} s: {json.dumps(loop.stats)}")
+    for s in srv.values():
+        s.close()
+
+    # snapshot ingest over the mesh
+    srv = {"mesh": StreamServer(MESH_B, params, mesh=mesh, ingest="snapshot", **kw),
+           "one": StreamServer(MESH_B, params, device="cuda", ingest="snapshot", **kw)}
+    for s in srv.values():
+        s.push_batch(host[:, :warm])
+    for h in range(2):
+        push()
+        both(lambda s: s.step(dt=dt), f"snapshot ingest, hop {h}")
+    for s in srv.values():
+        s.close()
+    print("multigpu: snapshot ingest over the mesh: 2 hops equal to one device's (torch.equal)")
+    numbers["server"] = dict(server_numbers, loops=loops, equal=True)
+    del srv, host, blocks
+    torch.cuda.empty_cache()
+
+    # (d) the sharded render of 64 streams at 640x360
+    pipe = StreamingPipeline(MESH_RENDER_STREAMS, params, path="pallas", fast=True, with_viewer=True, device="cuda")
+    for h in range(3):
+        out = pipe.step(audio[:MESH_RENDER_STREAMS, h * hop : (h + 1) * hop], dt)
+    cfg = render_mod.RenderConfig()
+    v, sc = out.viewer, out.analysis.scene_calmness
+    balls_s, bass_s, sc_s = shard_batch(mesh, (v.balls, v.bass, sc))
+
+    def one_batch():
+        return render_mod.render_batch(cfg, params.range, v.balls, v.bass, sc, 1.5)
+
+    def sharded_batch():
+        return counted(lambda: render_mod.render_batch(cfg, params.range, balls_s, bass_s, sc_s, 1.5))
+
+    want, got = one_batch(), sharded_batch()
+    check(isinstance(got, Sharded) and got.devices == mesh.local_devices, "multigpu: the frames are not sharded")
+    check(torch.equal(got.cpu(), want.cpu()), "multigpu: the sharded render differs from the unsharded render")
+    render_ms = {"mesh": [], "one": []}
+    for r in range(MESH_RENDER_REPS):
+        for name, fn in ((("mesh", sharded_batch), ("one", one_batch)) if r % 2 == 0
+                         else (("one", one_batch), ("mesh", sharded_batch))):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            render_ms[name].append((time.perf_counter() - t) * 1e3)
+    numbers["render"] = {k: dict(median_ms=float(np.median(v_)), min_ms=min(v_), max_ms=max(v_))
+                         for k, v_ in render_ms.items()}
+    numbers["render"]["streams"] = MESH_RENDER_STREAMS
+    print(f"multigpu: render_batch of {MESH_RENDER_STREAMS} streams at {cfg.width}x{cfg.height} sharded over the "
+          f"mesh: frames equal to the unsharded render (torch.equal); batch ms median "
+          f"{numbers['render']['mesh']['median_ms']:.3f} against {numbers['render']['one']['median_ms']:.3f} on one "
+          f"device ({MESH_RENDER_REPS} each, in turns)")
+    del pipe, out, v, sc, balls_s, bass_s, sc_s, got, want
+    torch.cuda.empty_cache()
+
+    # (e) the multi-host recipe: two processes, each a "host" of this machine's GPUs
+    lines, wall = bench_subprocess(["pitchvis_tpu_torch.runtime.multihost_serve", "--spawn", "2",
+                                    "--streams-per-host", str(MESH_RECIPE_STREAMS), "--seconds", str(MESH_RECIPE_S),
+                                    "--path", "pallas", "--fast"])
+    result = json.loads([line for line in lines if line.startswith("{")][-1])
+    check(result["metric"] == "multihost_streams_realtime_factor" and result["hosts"] == 2
+          and result["streams"] == 2 * MESH_RECIPE_STREAMS and result["value"] > 0 and result["steps_per_host"] > 0,
+          f"multigpu: the recipe's line {result}")
+    numbers["recipe"] = dict(result, wall_s=wall)
+    print(f"multigpu: python -m pitchvis_tpu_torch.runtime.multihost_serve --spawn 2 --streams-per-host "
+          f"{MESH_RECIPE_STREAMS} --seconds {MESH_RECIPE_S} --path pallas --fast: {json.dumps(result)} ({wall:.1f} s)")
+
+    for label in ("vqt_power_bf16", "peaks", "composite"):
+        check(launches[label] > 0, f"multigpu: {label} was not launched on the mesh's paths")
+    check(launches["agc"] > 0, "multigpu: the ring push kernel was not launched by the sharded step")
+    numbers["launches"] = launches
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    print(f"multigpu phase: {numbers['phase_s']:.1f} s, launches {json.dumps(launches)}")
+    return launches, numbers
+
+
 def main() -> None:
     import torch
 
@@ -3392,6 +3811,12 @@ def main() -> None:
         kernels[label]["launches_by_path"]["bench"] = bench_counts[label]
         kernels[label]["launches"] = sum(kernels[label]["launches_by_path"].values())
 
+    # ---- 12. multi-device serving ---------------------------------------------------
+    mesh_counts, mesh_numbers = multigpu_phase(torch, params, audio, counts, reset_counts)
+    for label in order:
+        kernels[label]["launches_by_path"]["multigpu"] = mesh_counts[label]
+        kernels[label]["launches"] = sum(kernels[label]["launches_by_path"].values())
+
     print(json.dumps({"vqt_times": vqt_times}))
     print(json.dumps({"analysis_step": analysis_profile}))
     print(json.dumps({"output_stages": stage_numbers}))
@@ -3400,6 +3825,7 @@ def main() -> None:
     print(json.dumps({"dataset": dataset_numbers}))
     print(json.dumps({"cli": cli_numbers}))
     print(json.dumps({"bench": bench_numbers}))
+    print(json.dumps({"multigpu": mesh_numbers}))
     print(json.dumps({"kernels": [kernels[n] for n in order]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

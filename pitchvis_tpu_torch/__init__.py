@@ -16,8 +16,11 @@ C++ on the host (native/, built with g++ at first use). Entry points run on the 
 given ``device="cpu"``. The command line, ``python -m pitchvis_tpu_torch.demo``
 (demo.py), puts a WAV file, a test tone, a pipe or an ALSA microphone
 through these paths (host I/O under io/, the resampler in ops/resample.py).
-The package imports nothing of the JAX package; the modules it needs from
-there are copied.
+Several devices serve one batch of streams split by rows (parallel/:
+``StreamServer(mesh=)``, ``make_sharded_pipeline_step``, the sharded render;
+runtime/multihost_serve.py with one process a host); as in the JAX package,
+nothing of it is exported here. The package imports nothing of the JAX
+package; the modules it needs from there are copied.
 """
 
 from .core.config import (

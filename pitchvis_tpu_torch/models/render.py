@@ -47,6 +47,12 @@ overlay's peak disks, is the hand-written kernel ``csrc/composite.cu``
 (ops/composite.py); everything else is plain PyTorch. The bloom's products
 run in IEEE float32 on the card whatever the caller's TF32 setting (the JAX
 package asks for ``Precision.HIGHEST``): ``_full_f32_matmul``.
+
+Over a mesh (parallel/sharding.py) the inputs are ``Sharded`` by streams:
+each slice renders on its own device with that device's static layers and
+bloom tables, one composite launch a slice, and the frames come back
+``Sharded`` the same way. No frame depends on another stream, so nothing
+crosses devices.
 """
 
 from __future__ import annotations
@@ -65,6 +71,7 @@ from ..core.config import VqtRange
 from ..core.device import resolve_device
 from ..ops.colors import COLORS, GRAY_LEVEL, calculate_color, static_table
 from ..ops.composite import composite_patches
+from ..parallel.sharding import Sharded, map_shards, select_rows
 from ..utils.rounding import exact_div, rust_round
 from .viewer import (
     SPIRAL_SEGMENTS_PER_SEMITONE,
@@ -1045,7 +1052,17 @@ def render_batch(
     shapes the fused pipeline emits); ``scene_calmness`` is (B,) or a
     scalar; ``time`` is a host scalar shared by all streams. Runs on the
     device of ``balls``; the scene's static layers come from
-    :func:`make_scene` unless given."""
+    :func:`make_scene` unless given. Sharded inputs (``balls``, ``bass``,
+    ``scene_calmness``, ``debug``, split alike over a mesh) render each
+    slice on its own device, with that device's :func:`make_scene`, into
+    Sharded frames; ``statics`` must then be None."""
+    if isinstance(balls.position, Sharded):
+        if statics is not None:
+            raise ValueError("sharded inputs render with each device's own statics; pass statics=None")
+        return map_shards(
+            lambda b, bs, sc, dbg: render_batch(cfg, rng, b, bs, sc, time, debug=dbg),
+            balls, bass, scene_calmness, debug,
+        )
     dev = balls.position.device
     st = statics if statics is not None else make_scene(cfg, rng, dev)
     n_streams = balls.position.shape[0]
@@ -1100,7 +1117,12 @@ def render_streams(
     output. A ``range`` of rows is a view; any other sequence is copied to
     the device as an index (a host-to-device copy). This is the display-rate
     consumer path: a deployment renders the handful of streams somebody is
-    watching, not the whole batch."""
+    watching, not the whole batch. The viewer outputs of a server over a
+    mesh (Sharded) render each slot's selected rows on that slot's device
+    and return Sharded frames in the order of ``streams``."""
+    if isinstance(viewer.balls.position, Sharded):
+        balls, bass, sc = select_rows((viewer.balls, viewer.bass, scene_calmness), list(streams))
+        return render_batch(cfg, rng, balls, bass, sc, time, statics=statics)
     idx = _select(streams, viewer.balls.position.device)
 
     def rows(obj):

@@ -9,7 +9,9 @@ through orbax, which needs JAX; the port saves them with ``np.savez`` and
 reads only its own checkpoints (the metadata files and the ring image have
 the JAX package's names and keys, the carries do not). Every save is
 staged and committed by renames, so a crash mid-save never destroys the
-previous checkpoint.
+previous checkpoint. A server over a mesh saves its carries gathered to the
+host, in the same files as without one, and a restore over a mesh splits
+them again: a checkpoint does not depend on the mesh it was saved from.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from ..models.analysis import AnalysisState
 from ..models.ml_system import MlState
 from ..models.pipeline import PipelineState
 from ..models.viewer import BALL_LEAVES
+from ..parallel.sharding import gather
 from ..stream.ring import RingState
 
 
@@ -217,6 +220,8 @@ def save_server_state(path: str, server) -> None:
         balls = server.balls_state
         vqt_params = server.vqt_params
         analysis_params = server.analysis_params
+    # a mesh server's carries, its slices in row order (the identity without one)
+    state, ml_state, balls = gather((state, ml_state, balls))
     carries = _analysis_arrays(state)
     audio, heads, gains = server.rings.export_state()
     np.savez_compressed(os.path.join(tmp, "server_rings.npz"), audio=audio, heads=heads, gains=gains)
@@ -259,7 +264,8 @@ def restore_server(path: str, ml_model=None, ml_params=None, mesh=None, device="
     ``ml_model``/``ml_params`` re-attach the model a checkpointed ML-serving
     server used (``ml_params`` None: the module's own weights); a checkpoint
     that carries an ML history raises ValueError without ``ml_model``.
-    ``mesh`` raises NotImplementedError, as the server does."""
+    ``mesh`` re-attaches a device mesh (the placement is not part of the
+    checkpoint): the restored carries are split over it."""
     from .server import StreamServer
 
     path = _resolve_dir(path, "server_meta.json")
@@ -300,12 +306,15 @@ def restore_server(path: str, ml_model=None, ml_params=None, mesh=None, device="
     server._max_lag = int(meta["max_lag"])
     with np.load(os.path.join(path, "server_rings.npz")) as rings:
         server.rings.import_state(rings["audio"], rings["heads"], rings["gains"])
+    # without a mesh the carries load straight onto the server's device;
+    # over one they load on the host and each slot's rows are copied once
+    device = server.device if mesh is None else "cpu"
     with np.load(os.path.join(path, "server_analysis_state.npz")) as z:
-        server.analysis_state = _analysis_state(z, server.device)
+        server.analysis_state = server._put_state(_analysis_state(z, device))
     if meta.get("has_ml_state") and server.ml_state is not None:
         with np.load(os.path.join(path, "server_ml_state.npz")) as z:
-            server.ml_state = MlState(history=tensor_from_numpy(z["history"], server.device))
+            server.ml_state = server._put_state(MlState(history=tensor_from_numpy(z["history"], device)))
     if server.with_viewer:
         with np.load(os.path.join(path, "server_balls_state.npz")) as z:
-            server.balls_state = ball_state_from_numpy(z, server.device)
+            server.balls_state = server._put_state(ball_state_from_numpy(z, device))
     return server

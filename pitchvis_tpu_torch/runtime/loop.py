@@ -26,7 +26,9 @@ Three publish modes:
 
 The loop thread enters ``torch.cuda.device`` of the server's card and
 enqueues everything on the default stream, so a ``reset_stream`` from the
-control thread is ordered after the loop's hop.
+control thread is ordered after the loop's hop. Over a mesh the server's
+hop enters each slot's device itself, and a hop is complete when the event
+recorded on each of the server's devices has completed.
 """
 
 from __future__ import annotations
@@ -38,11 +40,13 @@ import time
 
 import torch
 
+from ..parallel.sharding import Sharded
+
 
 def _to_host(tree):
     """Every tensor of an output tree (a tensor, a tuple, a dataclass) as a
     NumPy array."""
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, (torch.Tensor, Sharded)):
         return tree.cpu().numpy()
     if isinstance(tree, tuple):
         return tuple(_to_host(t) for t in tree)
@@ -71,9 +75,10 @@ class ServeLoop:
     if the body is already raising, teardown never masks that exception — a
     loop error stays readable on ``.error``).
 
-    ``sync`` is the publish policy: ``"element"`` waits on a CUDA event
-    recorded after the hop's dispatch, so published outputs are complete on
-    the card (on the CPU a step returns finished work and nothing waits);
+    ``sync`` is the publish policy: ``"element"`` waits on the CUDA events
+    recorded after the hop's dispatch (one on each of the server's devices),
+    so published outputs are complete on the card (on the CPU a step returns
+    finished work and nothing waits);
     ``"host"`` publishes every tensor as a NumPy array; ``"none"`` the raw
     tensors, possibly still being computed.
     """
@@ -100,6 +105,7 @@ class ServeLoop:
             raise ValueError("hops_per_dispatch > 1 / publish='per_hop' require ingest='delta'")
         self._server = server
         self._device = server.device
+        self._cards = [d for d in server.devices if d.type == "cuda"]
         self._k = int(hops_per_dispatch)
         # multi-hop modes dispatch k hops at a time; the deadline grid
         # spaces dispatches so the audio cadence still averages rate_hz
@@ -127,23 +133,27 @@ class ServeLoop:
 
     # -- loop thread -----------------------------------------------------------
     def _mark(self):
-        """An event recorded after the dispatch just enqueued (None on the
-        CPU, where a step returns finished work)."""
-        if self._device.type != "cuda":
+        """Events recorded after the dispatch just enqueued, one on each of
+        the server's cards (None on the CPU, where a step returns finished
+        work)."""
+        if not self._cards:
             return None
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self._device))
+        done = []
+        for device in self._cards:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(device))
+            done.append(event)
         return done
 
     def _synced(self, outputs, done):
-        """Applies the publish sync policy; ``done`` is the event recorded
+        """Applies the publish sync policy; ``done`` holds the events recorded
         after the dispatch that computed ``outputs``."""
         if self._sync == "none":
             return outputs
         if self._sync == "host":
             return _to_host(outputs)
-        if done is not None:
-            done.synchronize()
+        for event in done or ():
+            event.synchronize()
         return outputs
 
     def _publish(self, outputs, gains, done=None, synced: bool = False) -> None:

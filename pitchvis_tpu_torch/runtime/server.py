@@ -35,8 +35,17 @@ analysis carries and the window under the same race rules, and serves its
 own frozen copy of the model (models/ml_system.py::serving_copy).
 ``fetch="led"`` returns only the LED block and the two per-stream scalars
 (the ML history still advances). Entry points run on the card unless given
-``device="cpu"``. ``mesh`` is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP item.
+``device="cpu"``.
+
+``mesh`` (parallel/sharding.py::Mesh) splits the stream batch into
+contiguous row slices, one a mesh slot, as the JAX server's ``shard_map``
+does: one native ring bank holds every stream on the host, each hop's
+consumed rows go to their slot's device through a staging buffer of that
+slot, each slot carries its own rows of the window and of the analysis, ML
+and ball state, and the VQT arrays, the ML model and the hop's plan are
+replicated once a device (:class:`_ShardedPlan`). One host thread enqueues
+every slot's hop in turn; no hop calls a collective, and the outputs stay
+sharded (``Sharded`` leaves, gathered by ``numpy()``).
 """
 
 from __future__ import annotations
@@ -57,15 +66,20 @@ from ..models.pitch_mlp import DEFAULT_T
 from ..models.pipeline import ViewerOutputs, build_rebuilt_arrays, derived_stages, reset_state_row
 from ..models.viewer import BallState
 from ..ops.vqt import make_vqt_arrays, vqt_db_auto
+from ..parallel.sharding import (
+    Replicated,
+    Sharded,
+    join,
+    map_shards,
+    piece,
+    replicate,
+    shard_batch,
+    stream_sharding,
+    with_piece,
+)
 from .native import NativeResamplerBank, NativeRingBank
 
 _TORCH_DTYPE = {np.dtype(np.float32): torch.float32, np.dtype(np.bool_): torch.bool}
-
-
-def _not_ported(option: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"StreamServer({option}) is not ported to pitchvis_tpu_torch yet: ROADMAP Queue A item {item}"
-    )
 
 
 @dataclass
@@ -151,8 +165,26 @@ class _Plan:
         return new_state, window, outputs
 
 
+@dataclass(frozen=True)
+class _ShardedPlan:
+    """A :class:`_Plan` on each mesh device (its VQT arrays and ML model
+    that device's copies), run on each slot's rows by ``map_shards``: the
+    counterpart of the JAX server's ``shard_map``-wrapped programs. The
+    state, window, chunks, flags and per-stream dt it is given are Sharded;
+    a scalar dt goes to every slot as it is."""
+
+    plans: Replicated
+    snap_len: int
+
+    def fused(self, state, x, dt):
+        return map_shards(lambda p, *a: p.fused(*a), self.plans, state, x, dt)
+
+    def fused_delta(self, state, window, chunk, advanced, dt):
+        return map_shards(lambda p, *a: p.fused_delta(*a), self.plans, state, window, chunk, advanced, dt)
+
+
 class _Slot:
-    __slots__ = ("array", "pinned", "event", "busy", "sent")
+    __slots__ = ("array", "pinned", "event", "busy", "sent", "dim")
 
     def __init__(self, array, pinned=None, event=None):
         self.array = array  # the NumPy view the host fills
@@ -160,6 +192,7 @@ class _Slot:
         self.event = event  # recorded after its copy was enqueued
         self.busy = False
         self.sent = 0
+        self.dim = 0  # the stream axis of the array (a _MeshStage splits it)
 
 
 class _HostStage:
@@ -180,9 +213,10 @@ class _HostStage:
         self._slots: dict = {}
         self._sent = 0
 
-    def take(self, shape, dtype) -> _Slot:
+    def take(self, shape, dtype, dim: int = 0) -> _Slot:
         """A free host buffer of this shape and type; fill ``slot.array``,
-        then :meth:`send` or :meth:`drop` it."""
+        then :meth:`send` or :meth:`drop` it. (``dim``, the stream axis,
+        matters only to a _MeshStage.)"""
         shape, dtype = tuple(shape), np.dtype(dtype)
         if self.device.type != "cuda":
             return _Slot(np.empty(shape, dtype))
@@ -221,17 +255,56 @@ class _HostStage:
         with self._lock:
             slot.busy = False
 
-    def put(self, array: np.ndarray) -> torch.Tensor:
+    def put(self, array: np.ndarray, dim: int = 0) -> torch.Tensor:
         """``array`` on the device through a staging buffer."""
         slot = self.take(array.shape, array.dtype)
         np.copyto(slot.array, array)
         return self.send(slot)
 
 
+class _MeshStage:
+    """The batch's rows split into the mesh's slices, each slice sent to its
+    slot's device through a :class:`_HostStage` of that slot. The native
+    ring bank fills one host array of all B rows (unpinned); each slice is
+    copied once more on the host, into its slot's pinned buffer, and sent
+    from there without a synchronous copy."""
+
+    def __init__(self, slices):
+        self._slices = slices  # (device, start, stop) per slot
+        self._stages = [_HostStage(device) for device, _, _ in slices]
+
+    def take(self, shape, dtype, dim: int = 0) -> _Slot:
+        slot = _Slot(np.empty(shape, dtype))
+        slot.dim = dim
+        return slot
+
+    def send(self, slot: _Slot) -> Sharded:
+        return self.put(slot.array, slot.dim)
+
+    def drop(self, slot: _Slot) -> None:
+        pass
+
+    def put(self, array: np.ndarray, dim: int = 0) -> Sharded:
+        index = [slice(None)] * array.ndim
+        pieces = []
+        for stage, (_, start, stop) in zip(self._stages, self._slices):
+            index[dim] = slice(start, stop)
+            pieces.append(stage.put(array[tuple(index)]))
+        return Sharded(pieces, dim)
+
+
 def _zero_row(t: torch.Tensor, row: int) -> torch.Tensor:
     out = t.clone()
     out[row] = 0
     return out
+
+
+def _hop_dt(adv, hop_dt: float):
+    """Per-stream dt of a catch-up hop: ``hop_dt`` where the stream
+    advanced, else 0."""
+    if isinstance(adv, Sharded):
+        return map_shards(_hop_dt, adv, hop_dt=hop_dt)
+    return torch.where(adv, hop_dt, 0.0)
 
 
 class StreamServer:
@@ -287,19 +360,37 @@ class StreamServer:
         device and the (B,) AGC gains as a NumPy array. ``outputs`` are the
         bare ``AnalysisOutputs`` without output stages, ``ServeOutputs``
         with one, and ``CompactOutputs`` (the LED block and two scalars a
-        stream) for ``fetch="led"``, which implies ``with_led``. ``mesh``
-        raises NotImplementedError. Runs on the card unless
-        ``device="cpu"``; raises if the native ingest library cannot be
-        built or loaded."""
+        stream) for ``fetch="led"``, which implies ``with_led``. Runs on
+        the card unless ``device="cpu"``; raises if the native ingest
+        library cannot be built or loaded.
+
+        ``mesh`` (a one-host ``parallel.sharding.Mesh``, e.g.
+        ``make_mesh()``) splits the streams over the mesh's devices, which
+        then place everything (``device`` is not used): each slot serves
+        its contiguous slice of ``n_streams``, which must divide evenly over
+        the mesh. Every output leaf is then a ``Sharded`` value and
+        ``self.devices`` names the distinct devices; one server process
+        drives every local device, and multi-host scale-out runs one server
+        (or runtime/multihost_serve.py) a host."""
         if ingest not in ("delta", "snapshot"):
             raise ValueError(f"ingest must be 'delta' or 'snapshot', got {ingest!r}")
         if fetch not in ("full", "led"):
             raise ValueError(f"fetch must be 'full' or 'led', got {fetch!r}")
-        if mesh is not None:
-            raise _not_ported("mesh=", "11 (multi-GPU / multi-host)")
+        if mesh is not None and n_streams % mesh.size != 0:
+            raise ValueError(f"n_streams {n_streams} must divide evenly over the {mesh.size}-device mesh")
+        if mesh is not None and mesh.n_processes > 1:
+            raise ValueError("a server drives one process's devices: give it a one-host mesh")
         if fetch == "led":
             with_led = True
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+            self._slices = [(self.device, 0, n_streams)]
+        else:
+            self._slices = stream_sharding(mesh).local_slices(n_streams)
+            self.device = self._slices[0][0]
+        # the distinct devices, in slot order
+        self.devices = tuple(dict.fromkeys(d for d, _, _ in self._slices))
         self.vqt_params = vqt_params or VqtParameters()
         self.analysis_params = analysis_params or AnalysisParameters()
         self.path = path
@@ -319,15 +410,19 @@ class StreamServer:
             )
         self.rings = NativeRingBank(n_streams, capacity)
         self.kernel = get_kernel(self.vqt_params)
-        self.arrays = make_vqt_arrays(self.kernel, path=path, fast=fast, device=self.device)
+        self.arrays = self._replicated(make_vqt_arrays(self.kernel, path=path, fast=fast, device=self.device))
         self.n_streams = n_streams
-        self.ml_model = serving_copy(ml_model, ml_params, self.device) if ml_model is not None else None
+        self.ml_model = None
+        if ml_model is not None and mesh is None:
+            self.ml_model = serving_copy(ml_model, ml_params, self.device)
+        elif ml_model is not None:
+            self.ml_model = Replicated.build(mesh.local_devices, lambda d: serving_copy(ml_model, ml_params, d))
         self._ml_t = DEFAULT_T if ml_model is not None and ml_t_window is None else ml_t_window
         self.with_led, self.with_viewer, self.fetch = with_led, with_viewer, fetch
-        self.analysis_state = init_state_batch(n_streams, self.vqt_params.n_buckets, device=self.device)
-        self.ml_state = self._init_ml(n_streams)
-        self.balls_state = self._init_balls(n_streams)
-        self._stage = _HostStage(self.device)
+        self.analysis_state = self._rows(lambda n, d: init_state_batch(n, self.vqt_params.n_buckets, device=d))
+        self.ml_state = self._rows(self._init_ml)
+        self.balls_state = self._rows(self._init_balls)
+        self._stage = _HostStage(self.device) if mesh is None else _MeshStage(self._slices)
         self._last_step = None
         self._pending = None  # in-flight (outputs, gains) when pipelining
         self._serve_loop = None  # active self-driving loop (see serve())
@@ -350,42 +445,85 @@ class StreamServer:
         self._resampler_lock = threading.Lock()
         self._refresh_dispatch()
 
-    def _init_ml(self, n: int):
+    # -- placement (one device, or row slices over self.mesh) ----------------
+    def _rows(self, make):
+        """``make(n, device)`` for all ``n_streams`` rows on the server's
+        device, or for each slot's slice on its device, joined into Sharded
+        leaves."""
+        if self.mesh is None:
+            return make(self.n_streams, self.device)
+        return join([make(stop - start, d) for d, start, stop in self._slices])
+
+    def _replicated(self, value):
+        """``value`` (built on ``self.device``), or a copy on every mesh
+        device."""
+        return value if self.mesh is None else replicate(self.mesh, value)
+
+    def _put_state(self, tree):
+        """A carried-state tree of host or device tensors of all rows ->
+        split over the mesh (the identity without one)."""
+        return tree if self.mesh is None or tree is None else shard_batch(self.mesh, tree)
+
+    def _reset_rows(self, state, window, stream: int):
+        """The carried state and window with row ``stream`` fresh (window
+        row zeroed); functional. On a mesh the row is located in its slot,
+        whose fresh row is made on that slot's device."""
+        if self.mesh is None:
+            state = reset_state_row(state, self._fresh_rows(self.device), stream)
+            return state, (None if window is None else _zero_row(window, stream))
+        i, (device, start, _) = next((i, sl) for i, sl in enumerate(self._slices) if sl[1] <= stream < sl[2])
+        row = stream - start
+        state = with_piece(state, i, reset_state_row(piece(state, i), self._fresh_rows(device), row))
+        if window is not None:
+            window = window.replace(i, _zero_row(window.shards[i], row))
+        return state, window
+
+    def _init_ml(self, n: int, device):
         if self.ml_model is None:
             return None
-        return init_ml_state_batch(n, self._ml_t, self.vqt_params.n_buckets, device=self.device)
+        return init_ml_state_batch(n, self._ml_t, self.vqt_params.n_buckets, device=device)
 
-    def _init_balls(self, n: int):
+    def _init_balls(self, n: int, device):
         if not self.with_viewer:
             return None
-        return BallState.init(n, self.vqt_params.n_buckets, device=self.device)
+        return BallState.init(n, self.vqt_params.n_buckets, device=device)
 
-    def _fresh_rows(self):
+    def _fresh_rows(self, device):
         """One freshly initialized (B=1) row of the carried state (analysis,
-        ml, balls). Call with self._state_lock held (reads the live
-        n_buckets)."""
+        ml, balls) on ``device``. Call with self._state_lock held (reads the
+        live n_buckets)."""
         return (
-            init_state_batch(1, self.vqt_params.n_buckets, device=self.device),
-            self._init_ml(1),
-            self._init_balls(1),
+            init_state_batch(1, self.vqt_params.n_buckets, device=device),
+            self._init_ml(1, device),
+            self._init_balls(1, device),
         )
 
     def _refresh_dispatch(self) -> None:
         """Re-reads the arrays and parameters into the plan the next hop
         captures; called at init and after every rebuild()/retune_analysis(),
         with the lock held. (The JAX package builds and memoizes its jitted
-        programs here; the port has nothing to trace.)"""
-        self._plan = _Plan(
-            arrays=self.arrays,
-            path=self.path,
-            analysis_params=self.analysis_params,
-            rng=self.vqt_params.range,
-            snap_len=int(getattr(self.arrays, "tail", self.vqt_params.n_fft)),
-            ml_model=self.ml_model,
-            with_led=self.with_led,
-            with_viewer=self.with_viewer,
-            fetch=self.fetch,
-        )
+        programs here; the port has nothing to trace.) On a mesh the plan
+        is made once a device, with that device's arrays and model."""
+
+        def plan(device):
+            arrays = self.arrays if self.mesh is None else self.arrays.on(device)
+            return _Plan(
+                arrays=arrays,
+                path=self.path,
+                analysis_params=self.analysis_params,
+                rng=self.vqt_params.range,
+                snap_len=int(getattr(arrays, "tail", self.vqt_params.n_fft)),
+                ml_model=self.ml_model.on(device) if isinstance(self.ml_model, Replicated) else self.ml_model,
+                with_led=self.with_led,
+                with_viewer=self.with_viewer,
+                fetch=self.fetch,
+            )
+
+        if self.mesh is None:
+            self._plan = plan(self.device)
+        else:
+            plans = Replicated.build(self.mesh.local_devices, plan)
+            self._plan = _ShardedPlan(plans, plans.on(self.device).snap_len)
 
     # -- ingest side (any thread) -------------------------------------------
     def push(self, stream: int, samples: np.ndarray, sr: float | None = None) -> bool:
@@ -446,13 +584,12 @@ class StreamServer:
         with self._state_lock:
             # the fresh row is built inside the lock: a layout-changing
             # rebuild() between an unlocked read and the write would make it
-            # the wrong shape
-            self.analysis_state, self.ml_state, self.balls_state = reset_state_row(
-                (self.analysis_state, self.ml_state, self.balls_state), self._fresh_rows(), stream
+            # the wrong shape; the window row is zeroed (delta mode never
+            # re-sends the old client's audio)
+            state, self._window = self._reset_rows(
+                (self.analysis_state, self.ml_state, self.balls_state), self._window, stream
             )
-            if self._window is not None:
-                # delta mode never re-sends the old client's audio
-                self._window = _zero_row(self._window, stream)
+            self.analysis_state, self.ml_state, self.balls_state = state
             self._resets_in_flight.add(int(stream))
 
     def retune_analysis(self, analysis_params: AnalysisParameters) -> None:
@@ -476,14 +613,15 @@ class StreamServer:
             self.vqt_params, vqt_params, max_n_fft=self.rings.capacity,
             path=self.path, fast=self.fast, ml_attached=self.ml_model is not None, device=self.device,
         )
+        arrays = self._replicated(arrays)
         with self._state_lock:
             self.kernel = kernel
             self.arrays = arrays
             self.vqt_params = vqt_params
             if layout_changed:
-                self.analysis_state = init_state_batch(self.n_streams, vqt_params.n_buckets, device=self.device)
-                self.ml_state = self._init_ml(self.n_streams)
-                self.balls_state = self._init_balls(self.n_streams)
+                self.analysis_state = self._rows(lambda n, d: init_state_batch(n, vqt_params.n_buckets, device=d))
+                self.ml_state = self._rows(self._init_ml)
+                self.balls_state = self._rows(self._init_balls)
             self._refresh_dispatch()
             self._window = None
 
@@ -537,9 +675,7 @@ class StreamServer:
             if self.vqt_params is not params:
                 return False
             for s in self._resets_in_flight:
-                new_state = reset_state_row(new_state, self._fresh_rows(), s)
-                if new_window is not None:
-                    new_window = _zero_row(new_window, s)
+                new_state, new_window = self._reset_rows(new_state, new_window, s)
             self.analysis_state, self.ml_state, self.balls_state = new_state
             if new_window is not None:
                 self._window = new_window
@@ -581,9 +717,9 @@ class StreamServer:
                 # still decay, like a stalled snapshot); a catch-up hop
                 # advances only the draining streams' audio clocks
                 if k == 0:
-                    dt_b = torch.full((b,), float(dt), dtype=torch.float32, device=self.device)
+                    dt_b = self._rows(lambda n, d: torch.full((n,), float(dt), dtype=torch.float32, device=d))
                 else:
-                    dt_b = torch.where(adv_t, hop_dt, 0.0)
+                    dt_b = _hop_dt(adv_t, hop_dt)
                 new_state, new_window, outputs = plan.fused_delta(new_state, new_window, chunk, adv_t, dt_b)
                 gains = g
                 n_adv = int(adv.sum())
@@ -633,7 +769,7 @@ class StreamServer:
             plan, params, state, window = self._capture()
             if window is None or window.shape[1] != plan.snap_len:
                 window = self._materialize_window(plan.snap_len)
-            slot = self._stage.take((k, b, self._hop), np.float32)
+            slot = self._stage.take((k, b, self._hop), np.float32, dim=1)
             advs = np.empty((k, b), bool)
             gains_all = np.empty((k, b), np.float32)
             for i in range(k):
@@ -641,7 +777,7 @@ class StreamServer:
                 # the staging block
                 _, gains_all[i], advs[i] = self.rings.consume(self._hop, self._max_lag, out=slot.array[i])
             chunks = self._stage.send(slot)
-            advs_t = self._stage.put(advs)
+            advs_t = self._stage.put(advs, dim=1)
             n_adv = int(advs.sum())
             new_state, new_window = state, window
             per = []

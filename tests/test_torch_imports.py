@@ -27,6 +27,8 @@ from pitchvis_tpu_torch.ops.resample import PolyphaseResampler, resample
 from pitchvis_tpu_torch import xtask
 from pitchvis_tpu_torch.bench import configs as bench_configs
 from pitchvis_tpu_torch.bench import longhaul, soak
+from pitchvis_tpu_torch.parallel.sharding import make_mesh
+from pitchvis_tpu_torch.runtime import multihost_serve
 
 from conftest import SMALL_PARAMS
 from torch_port_helpers import to_port
@@ -63,7 +65,8 @@ def test_port_files_found():
                    "train/logistic.py", "train/corpus.py", "utils/signal.py", "io/wav.py", "ops/resample.py",
                    "core/settings.py", "core/tuning.py", "io/keytune.py", "io/alsa.py", "io/capture.py",
                    "io/golden.py", "io/png.py", "utils/profiling.py", "demo.py", "bench/__init__.py",
-                   "bench/configs.py", "bench/soak.py", "bench/longhaul.py", "bench/__main__.py", "xtask.py"):
+                   "bench/configs.py", "bench/soak.py", "bench/longhaul.py", "bench/__main__.py", "xtask.py",
+                   "parallel/__init__.py", "parallel/sharding.py", "runtime/multihost_serve.py"):
         assert os.path.join(ROOT, "pitchvis_tpu_torch", module) in files, module
     assert os.path.exists(os.path.join(ROOT, "pitchvis_tpu_torch", "native", "alsa_stub.c"))
 
@@ -81,7 +84,8 @@ BENCH_ENTRIES = ("bench_offline_vqt", "bench_streaming", "bench_latency", "bench
 @pytest.mark.parametrize("entry", ["pipeline", "vqt", "arrays", "server", "train", "model", "render", "dataset",
                                    "device_dataset", "render_schedule", "train_demo", "agc_init", "resampler",
                                    "resample", "vqt_freq", "run_chain", "wav_driver", *BENCH_ENTRIES,
-                                   "soak_pipeline", "soak_server", "soak_serve_loop", "longhaul", "xtask_warm"])
+                                   "soak_pipeline", "soak_server", "soak_serve_loop", "longhaul", "xtask_warm",
+                                   "make_mesh", "multihost_serve"])
 def test_entry_points_raise_without_cuda(entry, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     params = to_port(SMALL_PARAMS)
@@ -96,6 +100,10 @@ def test_entry_points_raise_without_cuda(entry, monkeypatch, tmp_path):
             soak.soak_serve_loop(2, 0.01, vqt_params=params)
         elif entry == "longhaul":
             longhaul.longhaul(2, 0.01, vqt_params=params, out_path=str(tmp_path / "lh.json"))
+        elif entry == "make_mesh":
+            make_mesh()
+        elif entry == "multihost_serve":
+            multihost_serve.main(["--streams-per-host", "2", "--seconds", "0.01", "--small"])
         elif entry == "xtask_warm":
             xtask.warm(["--small", "--streams", "2"])
         elif entry == "resampler":

@@ -21,6 +21,7 @@ from pitchvis_tpu_torch import StreamServer
 from pitchvis_tpu_torch.core.config import AnalysisParameters
 from pitchvis_tpu_torch.models.pitch_mlp import PitchMLP
 from pitchvis_tpu_torch.ops.resample import _design_prototype, make_spec
+from pitchvis_tpu_torch.parallel.sharding import make_mesh
 from pitchvis_tpu_torch.runtime import native
 
 from conftest import SMALL_PARAMS
@@ -438,17 +439,17 @@ def test_retune_analysis_keeps_carries():
 
 
 @pytest.mark.parametrize("option", [
-    dict(ml_model="PitchMLP"), dict(with_led=True), dict(with_viewer=True), dict(fetch="led"), dict(mesh=object()),
+    dict(ml_model="PitchMLP"), dict(with_led=True), dict(with_viewer=True), dict(fetch="led"), dict(mesh="cpu x 2"),
 ])
 def test_unported_options_raise(option):
-    """mesh= is not ported and raises, naming its ROADMAP item; the ML stage
-    (ml_model=) and the output stages (with_led, with_viewer, fetch="led")
-    are ported and serve a hop with their outputs (tests/test_torch_ml.py
-    and tests/test_torch_outputs.py hold them against the JAX server)."""
+    """Every option of the JAX server is ported now and serves a hop with
+    its outputs: the ML stage (ml_model=), the output stages (with_led,
+    with_viewer, fetch="led"; tests/test_torch_ml.py and
+    tests/test_torch_outputs.py hold them against the JAX server) and mesh=
+    (two virtual CPU slots; tests/test_torch_parallel.py holds it against
+    the JAX server's mesh)."""
     if "mesh" in option:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
-            StreamServer(2, to_port(SMALL_PARAMS), device="cpu", **option)
-        return
+        option = dict(mesh=make_mesh(2, device="cpu"))
     if "ml_model" in option:
         option = dict(ml_model=PitchMLP(input_bins=5 * SMALL_PARAMS.n_buckets, mlp_size=16, mlp_layers=1,
                                         device="cpu"))
@@ -460,6 +461,9 @@ def test_unported_options_raise(option):
             # the default history window is the training window, T=5
             assert tuple(out.ml_midi.shape) == (2, 128) and out.led is None
             assert tuple(srv.ml_state.history.shape) == (2, 5, SMALL_PARAMS.n_buckets)
+            return
+        if "mesh" in option:
+            assert out.peaks.devices == (torch.device("cpu"),) * 2 and out.peaks.shape == (2, SMALL_PARAMS.n_buckets)
             return
         assert (out.led is not None) == (option != dict(with_viewer=True))
         if "with_viewer" in option:
