@@ -31,6 +31,7 @@ from ..core.device import resolve_device
 from ..ops.peaks import _shift, enhance_peaks_continuous, promote_bass_peaks
 from ..ops.peaks_pallas import find_peaks_masks
 from ..utils.ema import ema_update
+from ..utils.profiling import annotate
 from ..utils.rounding import exact_div, rust_round
 
 
@@ -322,23 +323,27 @@ def analysis_step_batch(
     b, n = x_vqt.shape
     if n != rng.n_buckets:
         raise ValueError(f"x_vqt has {n} bins, the range {rng.n_buckets}")
-    dt_col = dt_batch(dt, b, x_vqt.device)[:, None]
+    with annotate("stage.analysis"):
+        dt_col = dt_batch(dt, b, x_vqt.device)[:, None]
 
-    # step 1: calmness- and frequency-adaptive EMA smoothing
-    horizons = _smoothing_horizons(params, rng, state.scene_calmness)
-    x_smoothed = ema_update(state.x_vqt_smoothed, x_vqt, dt_col, horizons)
+        # step 1: calmness- and frequency-adaptive EMA smoothing
+        with annotate("analysis.smooth"):
+            horizons = _smoothing_horizons(params, rng, state.scene_calmness)
+            x_smoothed = ema_update(state.x_vqt_smoothed, x_vqt, dt_col, horizons)
 
-    # discrete peaks of the smoothed spectrum (bassline and general
-    # configuration) and of the raw one (calmness uses only the general
-    # configuration, calmness.rs:30)
-    bpo = rng.buckets_per_octave
-    bass_mask, gen_mask = find_peaks_masks(
-        x_smoothed, (params.bassline_peak_config, params.peak_config), bpo, params.suppress_iterations
-    )
-    (raw_mask,) = find_peaks_masks(x_vqt, (params.peak_config,), bpo, params.suppress_iterations)
-    return _analysis_core(
-        params, rng, state, x_vqt, dt_col, x_smoothed, bass_mask, gen_mask, raw_mask
-    )
+        # discrete peaks of the smoothed spectrum (bassline and general
+        # configuration) and of the raw one (calmness uses only the general
+        # configuration, calmness.rs:30)
+        bpo = rng.buckets_per_octave
+        with annotate("analysis.peaks"):
+            bass_mask, gen_mask = find_peaks_masks(
+                x_smoothed, (params.bassline_peak_config, params.peak_config), bpo, params.suppress_iterations
+            )
+            (raw_mask,) = find_peaks_masks(x_vqt, (params.peak_config,), bpo, params.suppress_iterations)
+        with annotate("analysis.core"):
+            return _analysis_core(
+                params, rng, state, x_vqt, dt_col, x_smoothed, bass_mask, gen_mask, raw_mask
+            )
 
 
 def analysis_step(

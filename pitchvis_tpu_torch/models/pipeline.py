@@ -27,6 +27,7 @@ from ..io.led import led_frame_values
 from ..kernel.builder import get_kernel
 from ..ops.vqt import make_vqt_arrays, vqt_db_auto
 from ..stream.ring import RingState, ring_push, ring_window
+from ..utils.profiling import annotate
 from .analysis import AnalysisOutputs, AnalysisState, analysis_step_batch, dt_batch, init_state_batch
 from .ml_system import MlState, init_ml_state_batch, ml_step_batch, serving_copy
 from .pitch_mlp import DEFAULT_T
@@ -169,37 +170,38 @@ def derived_stages(
     (models/viewer.py). ``dt_b`` is the (B,) frame time. Returns
     (new_ml_state, ml_midi, led, new_balls_state, viewer), the JAX package's
     tuple; disabled stages pass their state through and emit None."""
-    new_ml = ml_state
-    ml_midi = None
-    if ml_model is not None:
-        if ml_state is None:
-            raise ValueError("ml_model needs the ML history (init_pipeline_state(ml_t_window=...))")
-        new_ml, ml_midi = ml_step_batch(ml_model, ml_params, ml_state, outputs.x_vqt_smoothed)
+    with annotate("stage.outputs"):
+        new_ml = ml_state
+        ml_midi = None
+        if ml_model is not None:
+            if ml_state is None:
+                raise ValueError("ml_model needs the ML history (init_pipeline_state(ml_t_window=...))")
+            new_ml, ml_midi = ml_step_batch(ml_model, ml_params, ml_state, outputs.x_vqt_smoothed)
 
-    led = None
-    if with_led:
-        led = led_frame_values(rng_cfg, outputs.peaks, outputs.peak_center, outputs.peak_size)
+        led = None
+        if with_led:
+            led = led_frame_values(rng_cfg, outputs.peaks, outputs.peak_center, outputs.peak_size)
 
-    new_balls = balls_state
-    viewer = None
-    if with_viewer:
-        if balls_state is None:
-            raise ValueError(
-                "with_viewer=True needs the ball carry (init_pipeline_state(with_viewer=True))"
+        new_balls = balls_state
+        viewer = None
+        if with_viewer:
+            if balls_state is None:
+                raise ValueError(
+                    "with_viewer=True needs the ball carry (init_pipeline_state(with_viewer=True))"
+                )
+            new_balls, ball_out = update_balls(
+                rng_cfg, balls_state, outputs.peaks, outputs.peak_center, outputs.peak_size,
+                outputs.calmness, outputs.pitch_accuracy, outputs.pitch_deviation, dt_b,
             )
-        new_balls, ball_out = update_balls(
-            rng_cfg, balls_state, outputs.peaks, outputs.peak_center, outputs.peak_size,
-            outputs.calmness, outputs.pitch_accuracy, outputs.pitch_deviation, dt_b,
-        )
-        viewer = ViewerOutputs(
-            balls=ball_out,
-            chroma=chroma_vector(outputs.x_vqt_smoothed, rng_cfg),
-            bloom=bloom_intensity(outputs.scene_calmness),
-            spectrogram_row=spectrogram_row_vqt(rng_cfg, outputs.x_vqt_smoothed),
-            bass=bass_spiral(rng_cfg, outputs.peaks, outputs.peak_center, outputs.peak_size),
-            calmness_histogram=calmness_histogram(outputs.calmness),
-        )
-    return new_ml, ml_midi, led, new_balls, viewer
+            viewer = ViewerOutputs(
+                balls=ball_out,
+                chroma=chroma_vector(outputs.x_vqt_smoothed, rng_cfg),
+                bloom=bloom_intensity(outputs.scene_calmness),
+                spectrogram_row=spectrogram_row_vqt(rng_cfg, outputs.x_vqt_smoothed),
+                bass=bass_spiral(rng_cfg, outputs.peaks, outputs.peak_center, outputs.peak_size),
+                calmness_histogram=calmness_histogram(outputs.calmness),
+            )
+        return new_ml, ml_midi, led, new_balls, viewer
 
 
 def pipeline_step(
@@ -227,18 +229,20 @@ def pipeline_step(
     display-derived quantity of update_display (pitch balls with fade carry,
     chroma, bloom, spectrogram row, bass spiral, calmness histogram);
     requires state.balls (init_pipeline_state(with_viewer=True))."""
-    ring = ring_push(state.ring, chunk, agc_params)
-    window = ring_window(ring, vqt_params.n_fft)
-    x_vqt = vqt_db_auto(vqt_arrays, window, path=path)
-    dt_b = dt_batch(dt, x_vqt.shape[0], x_vqt.device)
-    new_analysis, outputs = analysis_step_batch(
-        analysis_params, vqt_params.range, state.analysis, x_vqt, dt_b
-    )
-    new_ml, ml_midi, led, new_balls, viewer = derived_stages(
-        vqt_params.range, outputs, dt_b,
-        ml_model=ml_model, ml_params=ml_params, ml_state=state.ml,
-        with_led=with_led, balls_state=state.balls, with_viewer=with_viewer,
-    )
+    with annotate("pipeline.hop"):
+        with annotate("stage.ring"):
+            ring = ring_push(state.ring, chunk, agc_params)
+            window = ring_window(ring, vqt_params.n_fft)
+        x_vqt = vqt_db_auto(vqt_arrays, window, path=path)
+        dt_b = dt_batch(dt, x_vqt.shape[0], x_vqt.device)
+        new_analysis, outputs = analysis_step_batch(
+            analysis_params, vqt_params.range, state.analysis, x_vqt, dt_b
+        )
+        new_ml, ml_midi, led, new_balls, viewer = derived_stages(
+            vqt_params.range, outputs, dt_b,
+            ml_model=ml_model, ml_params=ml_params, ml_state=state.ml,
+            with_led=with_led, balls_state=state.balls, with_viewer=with_viewer,
+        )
     return (
         PipelineState(ring=ring, analysis=new_analysis, ml=new_ml, balls=new_balls),
         PipelineOutputs(x_vqt=x_vqt, gain=ring.gain, analysis=outputs, ml_midi=ml_midi, led=led, viewer=viewer),
@@ -313,7 +317,8 @@ def pipeline_step_multi(
             state, kwargs["vqt_params"], kwargs.get("ml_model"), kwargs.get("ml_params"),
             kwargs.get("with_led", False), kwargs.get("with_viewer", False),
         )
-    return state, _stack(outs)
+    with annotate("pipeline.stack"):
+        return state, _stack(outs)
 
 
 class StreamingPipeline:
@@ -388,16 +393,18 @@ class StreamingPipeline:
         return torch.as_tensor(x, dtype=torch.float32).to(self.device)
 
     def step(self, chunk, dt) -> PipelineOutputs:
-        self.state, out = pipeline_step(
-            self.arrays, self.state, self._samples(chunk), dt, **self._kwargs()
-        )
+        with annotate("pipeline.call"):
+            self.state, out = pipeline_step(
+                self.arrays, self.state, self._samples(chunk), dt, **self._kwargs()
+            )
         return out
 
     def step_multi(self, chunks, dt) -> PipelineOutputs:
         """(K, B, hop) chunks -> K hops, outputs stacked along K."""
-        self.state, out = pipeline_step_multi(
-            self.arrays, self.state, self._samples(chunks), dt, **self._kwargs()
-        )
+        with annotate("pipeline.call"):
+            self.state, out = pipeline_step_multi(
+                self.arrays, self.state, self._samples(chunks), dt, **self._kwargs()
+            )
         return out
 
     def rebuild(self, vqt_params: VqtParameters) -> None:

@@ -29,6 +29,7 @@ import torch
 from ..core.config import VqtParameters
 from ..core.device import resolve_device
 from ..kernel.builder import VqtKernel, get_kernel
+from ..utils.profiling import annotate
 
 REF_POWER = 0.3 * 0.3
 A_MIN = 1e-6 * 1e-6
@@ -201,11 +202,12 @@ def vqt_db_auto(arrays, x: torch.Tensor, *, path: str = "time") -> torch.Tensor:
     """Path-dispatching dB VQT used by the streaming pipeline and the
     server: routes ``path="pallas"`` to the fused kernel and the dense paths
     ("time" / "freq") through :func:`vqt_db_batch`."""
-    if path == "pallas":
-        from .vqt_pallas import vqt_db_pallas
+    with annotate("stage.vqt"):
+        if path == "pallas":
+            from .vqt_pallas import vqt_db_pallas
 
-        return vqt_db_pallas(arrays, x)
-    return vqt_db_batch(arrays, x, path=path)
+            return vqt_db_pallas(arrays, x)
+        return vqt_db_batch(arrays, x, path=path)
 
 
 class Vqt:

@@ -77,6 +77,7 @@ from ..parallel.sharding import (
     stream_sharding,
     with_piece,
 )
+from ..utils.profiling import annotate
 from .native import NativeResamplerBank, NativeRingBank
 
 _TORCH_DTYPE = {np.dtype(np.float32): torch.float32, np.dtype(np.bool_): torch.bool}
@@ -129,16 +130,18 @@ class _Plan:
         """VQT in dB of (B, snap_len) frames, the analysis step and the
         output stages. Returns (new state, packed outputs): the bare
         AnalysisOutputs without stages, else ServeOutputs, or CompactOutputs
-        for fetch="led"."""
+        for fetch="led". Its stages record their spans inside one
+        ``server.hop`` span."""
         analysis, ml, balls = state
-        x_vqt = vqt_db_auto(self.arrays, x, path=self.path)
-        dt_b = dt_batch(dt, x_vqt.shape[0], x_vqt.device)
-        new_analysis, outputs = analysis_step_batch(self.analysis_params, self.rng, analysis, x_vqt, dt_b)
-        new_ml, ml_midi, led, new_balls, viewer = derived_stages(
-            self.rng, outputs, dt_b,
-            ml_model=self.ml_model, ml_state=ml,
-            with_led=self.with_led, balls_state=balls, with_viewer=self.with_viewer,
-        )
+        with annotate("server.hop"):
+            x_vqt = vqt_db_auto(self.arrays, x, path=self.path)
+            dt_b = dt_batch(dt, x_vqt.shape[0], x_vqt.device)
+            new_analysis, outputs = analysis_step_batch(self.analysis_params, self.rng, analysis, x_vqt, dt_b)
+            new_ml, ml_midi, led, new_balls, viewer = derived_stages(
+                self.rng, outputs, dt_b,
+                ml_model=self.ml_model, ml_state=ml,
+                with_led=self.with_led, balls_state=balls, with_viewer=self.with_viewer,
+            )
         if self.fetch == "led":
             packed = CompactOutputs(
                 led=led, scene_calmness=outputs.scene_calmness, tuning_inaccuracy=outputs.tuning_inaccuracy
