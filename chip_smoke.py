@@ -195,6 +195,19 @@ toolkit (nvcc). Phases, each of which fails the run on any error:
    1024 --seconds 3 --path pallas --fast`` as a subprocess (two processes
    joined by gloo, both on this machine's GPUs), its line read (2 hosts,
    2048 streams, a positive rate).
+13. replays StreamingPipeline.step_multi as a CUDA graph at the pv_serial
+   capacity cell's shape (3840 LED streams, 16 hops a call, its VQT
+   parameters, f32): a capturing call and 4 replays over two banks, each
+   torch.equal to pipeline_step_multi in state and every output leaf, each
+   call's returned outputs unchanged after the last, the graph counters, and
+   the kernels' launch counters (a replay counts its hops, a capture none);
+   a replay under set_sync_debug_mode("error") and one under the profiler
+   (the VQT, peaks and ring push kernels among its device events); the
+   host's enqueue and a call's wall time, eager against replay; the viewer
+   and the ML stage at 256 streams with a dt that changes from call to
+   call, a reset_stream, a rebuild and a per-stream dt, torch.equal to the
+   eager path; and 8 streams of the replayed outputs against a pipeline on
+   the CPU over 32 hops at test_hop_matches_jax's tolerances.
 
 It prints a JSON line of the VQT's times by part, one of the analysis step's
 launches and times, one of the output stages' numbers, one of the ML phase's
@@ -207,7 +220,7 @@ each; the ``agc_signal`` entry's over the device route's files and the
 bench), one of the dataset phase's (``dataset``), one of the command line's
 (``cli``), one of the bench's (``bench``), one of the mesh's
 (``multigpu``; ``launches_by_path`` of every kernel gains ``multigpu``),
-then the nvidia-smi line, and as its last line ``{"ok": true, "device":
+one of the graph phase's (``graph``), then the nvidia-smi line, and as its last line ``{"ok": true, "device":
 {...}}``.
 Without CUDA it exits 1 and prints no result.
 """
@@ -2907,6 +2920,9 @@ def tree_diff(torch, a, b, path="outputs") -> str | None:
     if a is None or b is None:
         return None if a is None and b is None else path
     if isinstance(a, (torch.Tensor, Sharded)):
+        if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor) and a.device == b.device \
+                and a.shape == b.shape and torch.equal(a, b):
+            return None
         x, y = a.cpu(), b.cpu()
         if x.shape == y.shape and torch.equal(x, y):
             return None
@@ -3279,6 +3295,217 @@ def multigpu_phase(torch, params, audio, counts, reset_counts) -> tuple[dict, di
     numbers["phase_s"] = time.perf_counter() - t_phase
     print(f"multigpu phase: {numbers['phase_s']:.1f} s, launches {json.dumps(launches)}")
     return launches, numbers
+
+
+GRAPH_B = 3840  # phase 13: the streams of the pv_serial capacity cell
+GRAPH_K = 16  # its hops a call
+GRAPH_CALLS = 4  # replayed calls held to the eager path
+GRAPH_TIMED = 10  # calls timed on each path
+GRAPH_STAGE_B = 256  # streams of the viewer and ML pipelines
+GRAPH_CPU_B = 8  # streams held against a pipeline on the CPU
+GRAPH_CPU_CALLS = 2  # their calls (32 hops)
+# test_hop_matches_jax's tolerances (tests/test_torch_pipeline.py)
+HOP_GAIN_RTOL = 1e-6
+HOP_DB_ATOL = 1e-3
+HOP_FLIP_SHARE = 2e-4
+HOP_ATOL = 1e-3
+
+
+def graph_phase(torch) -> dict:
+    """Phase 13: StreamingPipeline.step_multi's CUDA graph at the pv_serial
+    capacity cell's shape (3840 LED streams, 16 hops a call, its VQT
+    parameters, f32 with the 3xTF32 VQT). (a) a first call that captures
+    and GRAPH_CALLS replays over two alternating banks, each torch.equal to
+    pipeline_step_multi in state and every output leaf, every call's
+    returned outputs unchanged after the last, the counters; (b) a replay
+    under set_sync_debug_mode("error") and under the profiler (the
+    hand-written kernels must show as device events); (c) the host's time
+    to enqueue a call and a call's wall time, eager against replay; (d) the
+    viewer and the ML stage at 256 streams, with a dt that changes from call
+    to call, a reset_stream and a rebuild, each replay torch.equal to the
+    eager path; (e) the replayed outputs of 8 streams against a pipeline on
+    the CPU over 32 hops, at test_hop_matches_jax's tolerances. Returns its
+    numbers."""
+    import dataclasses
+
+    from pitchvis_tpu_torch import StreamingPipeline, VqtParameters
+    from pitchvis_tpu_torch.core.config import VqtRange
+    from pitchvis_tpu_torch.models.pipeline import _launch_counts as launch_counts
+    from pitchvis_tpu_torch.models.pipeline import _tree_map as tree_map
+    from pitchvis_tpu_torch.models.pipeline import pipeline_step_multi
+    from pitchvis_tpu_torch.models.pitch_mlp import DEFAULT_T, PitchMLP
+
+    params = VqtParameters(sr=22050.0, n_fft=32768, range=VqtRange(min_freq=55.0, octaves=5, buckets_per_octave=36),
+                           sparsity_quantile=0.999, quality=1.8, gamma=8.64)
+    hop = 735
+    dt = hop / params.sr
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    audio = synthetic_audio(torch, GRAPH_B, 2 * GRAPH_K * hop, params.sr, gen)
+    audio[3] = 0.0  # a silent stream
+    audio[5, 2 * hop + 9] = float("nan")  # a NaN chunk
+    banks = audio.reshape(GRAPH_B, 2, GRAPH_K, hop).permute(1, 2, 0, 3).contiguous()  # (2, K, B, hop)
+    del audio
+    numbers = {}
+
+    def same(got, want, what):
+        diff = tree_diff(torch, got, want, what)
+        check(diff is None, f"graph: {diff} differs from the eager path")
+
+    def calls(pipe, ref, n, dts, between=None, banks_=banks):
+        """n calls of pipe.step_multi against the eager step of ref; the
+        returned outputs of each call, and their copies."""
+        kept = []
+        for c in range(n):
+            if between is not None:
+                between(c, pipe)
+                between(c, ref)
+            bank, d = banks_[c % 2], dts(c)
+            out = pipe.step_multi(bank, d)
+            ref.state, want = pipeline_step_multi(ref.arrays, ref.state, bank, d, **ref._kwargs())
+            same(out, want, f"call {c} outputs")
+            same(pipe.state, ref.state, f"call {c} state")
+            kept.append((out, tree_map(torch.Tensor.clone, out)))
+        for c, (out, copy) in enumerate(kept):
+            same(out, copy, f"call {c}'s outputs after call {n - 1}")
+        return kept
+
+    # (a) the cell's shape
+    torch.cuda.reset_peak_memory_stats()
+    cell = dict(path="pallas", fast=False, with_led=True, device="cuda")
+    pipe, ref = StreamingPipeline(GRAPH_B, params, **cell), StreamingPipeline(GRAPH_B, params, **cell)
+    before = launch_counts()
+    cpu_rows = calls(pipe, ref, 1 + GRAPH_CALLS, lambda c: dt)[:GRAPH_CPU_CALLS]
+    want_counts = {"graph_captures": 1, "graph_replays": GRAPH_CALLS, "graph_eager_calls": 1,
+                   "graph_state_stagings": 1}
+    check(pipe.graph_counts == want_counts, f"graph counters {pipe.graph_counts}, expected {want_counts}")
+    # the VQT, peaks and ring push launches of both pipelines' calls: a
+    # capture counts none, a replay its 16 hops'
+    counted = tuple(a - b for a, b in zip(launch_counts(), before))
+    want = tuple(2 * (1 + GRAPH_CALLS) * GRAPH_K * n for n in (1, 2, 1))
+    check(counted == want, f"graph: launch counters moved by {counted}, expected {want}")
+    numbers["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"graph at the capacity cell's shape (B={GRAPH_B}, K={GRAPH_K}, LED): {1 + GRAPH_CALLS} calls over two "
+          f"banks torch.equal to pipeline_step_multi in state and every output leaf, each call's outputs unchanged "
+          f"after the last; counters {pipe.graph_counts}; launch counters (vqt, peaks, agc) {counted}; peak device memory {numbers['peak_gib']:.2f} GiB "
+          f"(two pipelines, the kept outputs)")
+
+    # (b) a replay under sync-debug, and under the profiler
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = pipe.step_multi(banks[1], dt)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ref.state, want = pipeline_step_multi(ref.arrays, ref.state, banks[1], dt, **ref._kwargs())
+    same(out, want, "the sync-debug replay's outputs")
+    print('graph: a replay under set_sync_debug_mode("error"): no host synchronisation, torch.equal to the eager call')
+    ops = []
+    n_ops, replay_device_ms = device_trace(torch, lambda: pipe.step_multi(banks[0], dt), ops=ops)
+    names = [n for n, _ in ops]
+    seen = {k: sum(k in n for n in names) for k in ("vqt_kernel", "peaks_kernel", "ring_push_kernel")}
+    check(all(v > 0 for v in seen.values()),
+          f"graph: the profiler saw {seen} in a replay of {GRAPH_K} hops")
+    memcpy = sum(n.startswith(("Memcpy", "Memset")) for n in names)
+    numbers.update(replay_device_ops=n_ops, replay_copies=memcpy, replay_device_ms=replay_device_ms)
+    print(f"graph: one replay under the profiler: {n_ops} device events ({memcpy} copies or sets), "
+          f"{(n_ops - memcpy) / GRAPH_K:.2f} kernels a hop, {replay_device_ms:.3f} device ms "
+          f"({replay_device_ms / GRAPH_K:.4f} a hop); hand-written kernels {seen}")
+    del out, want
+
+    # (c) the host's time a call, eager against replay
+    def timed(fn):
+        enqueue, wall = [], []
+        for i in range(GRAPH_TIMED):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(i)
+            enqueue.append((time.perf_counter() - t) * 1e3)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(enqueue)), float(np.median(wall))
+
+    def eager(i):
+        ref.state, _ = pipeline_step_multi(ref.arrays, ref.state, banks[i % 2], dt, **ref._kwargs())
+
+    t_eager = timed(eager)
+    t_replay = timed(lambda i: pipe.step_multi(banks[i % 2], dt))
+    for label, (enq, wall) in (("eager", t_eager), ("replay", t_replay)):
+        numbers[label] = dict(enqueue_ms=enq, wall_ms=wall, realtime_x=GRAPH_B * GRAPH_K * dt * 1e3 / wall)
+        print(f"graph: {label} call of {GRAPH_K} hops at B={GRAPH_B}: host enqueue {enq:.3f} ms "
+              f"({enq / GRAPH_K:.4f} a hop), wall {wall:.3f} ms ({wall / GRAPH_K:.4f} a hop), "
+              f"{numbers[label]['realtime_x']:.0f}x realtime (median of {GRAPH_TIMED}, one call at a time)")
+    check(t_replay[0] < t_eager[0], "graph: a replay took the host longer to enqueue than the eager call")
+    del pipe, ref
+    torch.cuda.empty_cache()
+
+    # (d) the viewer and the ML stage, a changing dt, a reset and a rebuild
+    small = banks[:, :, :GRAPH_STAGE_B].contiguous()
+    model = PitchMLP(input_bins=DEFAULT_T * params.n_buckets, seed=3, device="cuda")
+    rebuilt = dataclasses.replace(params, quality=params.quality * 1.1)
+
+    def between(c, p):
+        if c == 2:
+            p.reset_stream(7)
+        if c == 3:
+            p.rebuild(rebuilt)
+
+    for label, kw in (("viewer", dict(with_led=True, with_viewer=True)),
+                      ("ML", dict(with_led=True, ml_model=model, ml_params=model.state_dict()))):
+        make = lambda: StreamingPipeline(GRAPH_STAGE_B, params, path="pallas", fast=False, device="cuda", **kw)
+        pipe, ref = make(), make()
+        calls(pipe, ref, 6, lambda c: dt * (1.0 + 0.1 * c), between, small)
+        # a per-stream dt
+        per_stream = torch.linspace(0.5, 1.5, GRAPH_STAGE_B, device="cuda") * dt
+        for c in range(3):
+            out = pipe.step_multi(small[c % 2], per_stream * (1 + c))
+            ref.state, want = pipeline_step_multi(ref.arrays, ref.state, small[c % 2], per_stream * (1 + c),
+                                                  **ref._kwargs())
+            same(out, want, f"{label}, per-stream dt, call {c}")
+            same(pipe.state, ref.state, f"{label}, per-stream dt, state after call {c}")
+        # the rebuild before call 3 captures again; a per-stream dt replays
+        # the same graph as a scalar one
+        want_counts = {"graph_captures": 2, "graph_replays": 7, "graph_eager_calls": 2, "graph_state_stagings": 3}
+        check(pipe.graph_counts == want_counts, f"graph, {label}: counters {pipe.graph_counts}, expected {want_counts}")
+        print(f"graph, {label} stage at B={GRAPH_STAGE_B}: 9 calls torch.equal to the eager path in state and every "
+              f"output leaf (a dt that changes from call to call, reset_stream(7) before call 2, a rebuild before "
+              f"call 3, a per-stream dt from call 6), each call's outputs unchanged after the next; "
+              f"counters {pipe.graph_counts}")
+        del pipe, ref
+    numbers["stages_equal"] = True
+
+    # (e) the replayed outputs against a pipeline on the CPU
+    cpu = StreamingPipeline(GRAPH_CPU_B, params, path="pallas", fast=False, with_led=True, device="cpu")
+    flips = total = 0
+    worst = dict.fromkeys(("gain_rel", "x_vqt", "continuous", "per_stream"), 0.0)
+
+    def gap(a, b):  # |a - b|, 0 where equal (equal infinities too)
+        return torch.where(a == b, torch.zeros_like(a), (a - b).abs())
+
+    for c, (out, _) in enumerate(cpu_rows):
+        want = cpu.step_multi(banks[c % 2][:, :GRAPH_CPU_B].cpu(), dt)
+        got = tree_map(lambda x: x[:, :GRAPH_CPU_B].cpu(), out)
+        worst["gain_rel"] = max(worst["gain_rel"],
+                                float(((got.gain - want.gain).abs() / want.gain.abs().clamp_min(1e-30)).max()))
+        check(torch.allclose(got.gain, want.gain, rtol=HOP_GAIN_RTOL, atol=0), f"graph vs CPU: gains, call {c}")
+        worst["x_vqt"] = max(worst["x_vqt"], float(gap(got.x_vqt, want.x_vqt).max()))
+        agree = got.analysis.peaks == want.analysis.peaks
+        flips += int((~agree).sum())
+        total += agree.numel()
+        for name in ("x_vqt_smoothed", "x_vqt_afterglow", "calmness", "peak_center", "peak_size",
+                     "pitch_accuracy", "pitch_deviation"):
+            d = gap(getattr(got.analysis, name), getattr(want.analysis, name))[agree]
+            worst["continuous"] = max(worst["continuous"], float(d.max()) if d.numel() else 0.0)
+        for name in ("scene_calmness", "tuning_inaccuracy"):
+            worst["per_stream"] = max(worst["per_stream"],
+                                      float(gap(getattr(got.analysis, name), getattr(want.analysis, name)).max()))
+        led_off = float((got.led != want.led).float().mean())
+    check(worst["x_vqt"] <= HOP_DB_ATOL and worst["continuous"] <= HOP_ATOL and worst["per_stream"] <= HOP_ATOL
+          and flips <= HOP_FLIP_SHARE * total, f"graph vs CPU out of tolerance: {worst}, {flips} of {total} peaks flipped")
+    numbers["card_vs_cpu"] = dict(worst, flips=flips, bins=total, led_off_share_last_call=led_off)
+    print(f"graph: the replayed outputs of {GRAPH_CPU_B} streams over {GRAPH_CPU_CALLS * GRAPH_K} hops against the "
+          f"CPU: {json.dumps(numbers['card_vs_cpu'])} (tolerances: gains rtol {HOP_GAIN_RTOL}, x_vqt {HOP_DB_ATOL} dB, "
+          f"{HOP_FLIP_SHARE} of the peaks, the rest {HOP_ATOL} where the peaks agree)")
+    return numbers
 
 
 def main() -> None:
@@ -3817,6 +4044,9 @@ def main() -> None:
         kernels[label]["launches_by_path"]["multigpu"] = mesh_counts[label]
         kernels[label]["launches"] = sum(kernels[label]["launches_by_path"].values())
 
+    # ---- 13. the CUDA graph of step_multi ---------------------------------------------
+    graph_numbers = graph_phase(torch)
+
     print(json.dumps({"vqt_times": vqt_times}))
     print(json.dumps({"analysis_step": analysis_profile}))
     print(json.dumps({"output_stages": stage_numbers}))
@@ -3826,6 +4056,7 @@ def main() -> None:
     print(json.dumps({"cli": cli_numbers}))
     print(json.dumps({"bench": bench_numbers}))
     print(json.dumps({"multigpu": mesh_numbers}))
+    print(json.dumps({"graph": graph_numbers}))
     print(json.dumps({"kernels": [kernels[n] for n in order]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -193,9 +193,9 @@ def bench_streaming(
 ) -> dict:
     """Config #2: 60 Hz hops through ring + AGC + VQT + analysis; the
     aggregate realtime factor of the card (streams x realtime). Each call
-    is ``step_multi`` of ``hops_per_call`` hops; the port runs them as eager
-    hops one after the other (no graph, no fused program), which is what
-    this config measures.
+    is ``step_multi`` of ``hops_per_call`` hops; on the card the port
+    replays the call as one CUDA graph after its first (the untimed call),
+    which is what this config measures.
 
     fused=True adds the ML inference and the LED colors to each hop (the
     reference's single frame update); path="pallas" + fast=True serve the

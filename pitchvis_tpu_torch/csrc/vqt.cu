@@ -90,6 +90,8 @@
 #include <dlfcn.h>
 #include <stdint.h>
 
+#include <atomic>
+
 // Tunables; pitchvis_tpu_torch/tools/vqt_sweep.py builds and times others.
 // A block is WGS consumer warpgroups (64 frames each) and one producer warp.
 #ifndef VQT_BF16_WGS
@@ -555,13 +557,29 @@ static int make_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, 
   return rc == CUDA_SUCCESS ? 0 : -3;
 }
 
-template <typename Kernel>
-static int launch(Kernel kernel, int threads, int smem, const CUtensorMap& map_x,
-                  const CUtensorMap& map_w, const int* tiles, int n_tiles, int n_mtiles, int B,
-                  float* out, int n_buckets, cudaStream_t stream) {
-  cudaError_t rc =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// Allows the kernel its dynamic shared memory once a device, at its first
+// launch there: a later launch, which a CUDA graph capture may record, sets
+// no attribute.
+template <typename Mode, int WGS, int STAGES>
+static int launch(int threads, int smem, const CUtensorMap& map_x, const CUtensorMap& map_w,
+                  const int* tiles, int n_tiles, int n_mtiles, int B, float* out, int n_buckets,
+                  cudaStream_t stream) {
+  auto kernel = vqt_kernel<Mode, WGS, STAGES>;
+  static const int n_devices = [] {
+    int n = 0;
+    return cudaGetDeviceCount(&n) == cudaSuccess ? n : 0;
+  }();
+  // one flag a device, all false
+  static std::atomic<bool>* const smem_set = new std::atomic<bool>[n_devices > 0 ? n_devices : 1]();
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
   if (rc != cudaSuccess) return (int)rc;
+  if (dev >= n_devices) return (int)cudaErrorInvalidDevice;
+  if (!smem_set[dev].load()) {
+    rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != cudaSuccess) return (int)rc;
+    smem_set[dev].store(true);
+  }
   kernel<<<n_tiles * n_mtiles, threads, smem, stream>>>(map_x, map_w, tiles, n_mtiles, B, out,
                                                         n_buckets);
   return (int)cudaGetLastError();
@@ -596,10 +614,12 @@ extern "C" int vqt_power(int dtype, const void* x, int B, int tail, long long ld
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
     using R = Ring<VQT_F32_STAGES, 64 * VQT_F32_WGS * ROW_BYTES, Tf32x3Mode::W_BYTES>;
-    return launch(vqt_kernel<Tf32x3Mode, VQT_F32_WGS, VQT_F32_STAGES>, VQT_F32_WGS * 128 + 32,
-                  R::SMEM_BYTES, map_x, map_w, tiles, n_tiles, n_mtiles, B, out, n_buckets, s);
+    return launch<Tf32x3Mode, VQT_F32_WGS, VQT_F32_STAGES>(VQT_F32_WGS * 128 + 32, R::SMEM_BYTES,
+                                                           map_x, map_w, tiles, n_tiles, n_mtiles,
+                                                           B, out, n_buckets, s);
   }
   using R = Ring<VQT_BF16_STAGES, 2 * 64 * VQT_BF16_WGS * ROW_BYTES, Bf16Mode::W_BYTES>;
-  return launch(vqt_kernel<Bf16Mode, VQT_BF16_WGS, VQT_BF16_STAGES>, VQT_BF16_WGS * 128 + 32,
-                R::SMEM_BYTES, map_x, map_w, tiles, n_tiles, n_mtiles, B, out, n_buckets, s);
+  return launch<Bf16Mode, VQT_BF16_WGS, VQT_BF16_STAGES>(VQT_BF16_WGS * 128 + 32, R::SMEM_BYTES,
+                                                         map_x, map_w, tiles, n_tiles, n_mtiles, B,
+                                                         out, n_buckets, s);
 }

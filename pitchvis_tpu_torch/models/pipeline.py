@@ -17,14 +17,17 @@ update_display (models/viewer.py), in plain PyTorch.
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from dataclasses import dataclass, fields
 
+import numpy as np
 import torch
 
 from ..core.config import AgcParameters, AnalysisParameters, VqtParameters
 from ..core.device import resolve_device
 from ..io.led import led_frame_values
 from ..kernel.builder import get_kernel
+from ..ops import agc, peaks_pallas, vqt_pallas
 from ..ops.vqt import make_vqt_arrays, vqt_db_auto
 from ..stream.ring import RingState, ring_push, ring_window
 from ..utils.profiling import annotate
@@ -71,6 +74,23 @@ def build_rebuilt_arrays(old_params, new_params, *, max_n_fft: int, path: str,
     return kernel, arrays, new_params.range != old_params.range
 
 
+def _tree_map(fn, tree, *rest):
+    """``fn`` over the tensors of a tree (a tensor, None, or a tuple or
+    dataclass of these) and the matching tensors of the trees ``rest`` of
+    the same structure: a tree of its results, None where ``tree`` is
+    None."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if isinstance(tree, tuple):
+        return tuple(_tree_map(fn, *parts) for parts in zip(tree, *rest))
+    return type(tree)(**{
+        f.name: _tree_map(fn, getattr(tree, f.name), *(getattr(r, f.name) for r in rest))
+        for f in fields(tree)
+    })
+
+
 def reset_state_row(state, fresh, idx: int):
     """Overwrites batch row ``idx`` of every tensor of a carried state (a
     tensor, None, or a tuple or dataclass of these) with row 0 of the
@@ -79,18 +99,13 @@ def reset_state_row(state, fresh, idx: int):
     runtime/server.py::StreamServer.reset_stream). Functional: each tensor is
     cloned before the write, so a tensor that a caller captured earlier (an
     in-flight hop, outputs already returned) never changes."""
-    if state is None:
-        return None
-    if isinstance(state, torch.Tensor):
-        out = state.clone()
-        out[idx] = fresh[0]
+
+    def reset(leaf, new):
+        out = leaf.clone()
+        out[idx] = new[0]
         return out
-    if isinstance(state, tuple):
-        return tuple(reset_state_row(s, f, idx) for s, f in zip(state, fresh))
-    return type(state)(**{
-        f.name: reset_state_row(getattr(state, f.name), getattr(fresh, f.name), idx)
-        for f in fields(state)
-    })
+
+    return _tree_map(reset, state, fresh)
 
 
 @dataclass
@@ -252,12 +267,7 @@ def pipeline_step(
 def _stack(items):
     """Stacks a list of equal-structured output dataclasses along a new
     leading axis (None leaves stay None)."""
-    first = items[0]
-    if first is None:
-        return None
-    if isinstance(first, torch.Tensor):
-        return torch.stack(items)
-    return type(first)(**{f.name: _stack([getattr(it, f.name) for it in items]) for f in fields(first)})
+    return _tree_map(lambda *leaves: torch.stack(leaves), *items)
 
 
 def _no_hops(state: PipelineState, vqt_params: VqtParameters, ml_model, ml_params, with_led: bool,
@@ -285,17 +295,8 @@ def _no_hops(state: PipelineState, vqt_params: VqtParameters, ml_model, ml_param
         with_led=with_led, balls_state=state.balls, with_viewer=with_viewer,
     )
     one = PipelineOutputs(x_vqt=zeros(n), gain=zeros(), analysis=analysis, ml_midi=ml_midi, led=led, viewer=viewer)
-    return _empty_like(one)
-
-
-def _empty_like(tree):
-    """``tree`` with each tensor replaced by an empty one of its type and
-    shape behind a leading axis of 0."""
-    if tree is None:
-        return None
-    if isinstance(tree, torch.Tensor):
-        return tree.new_empty((0, *tree.shape))
-    return type(tree)(**{f.name: _empty_like(getattr(tree, f.name)) for f in fields(tree)})
+    # each leaf empty, behind a leading axis of 0
+    return _tree_map(lambda leaf: leaf.new_empty((0, *leaf.shape)), one)
 
 
 def pipeline_step_multi(
@@ -321,6 +322,86 @@ def pipeline_step_multi(
         return state, _stack(outs)
 
 
+# StreamingPipeline.graph_counts: calls captured, calls replayed, calls run
+# eagerly (step(), K = 0, a device without graphs, a key's first call), and
+# copies of a state set from outside into a graph's state buffers
+GRAPH_COUNTERS = ("graph_captures", "graph_replays", "graph_eager_calls", "graph_state_stagings")
+# how many captured calls a pipeline keeps, the most recently used; the
+# least recently used beyond them is dropped with its memory pool
+GRAPHS_KEPT = 4
+# the module counters of the hand-written kernels' launches in a hop (each
+# wrapper counts one as it launches)
+_LAUNCH_COUNTERS = ((vqt_pallas, "launches"), (peaks_pallas, "launches"), (agc, "launches"))
+
+
+def _launch_counts() -> tuple:
+    return tuple(getattr(module, name) for module, name in _LAUNCH_COUNTERS)
+
+
+def _add_launch_counts(deltas) -> None:
+    for (module, name), delta in zip(_LAUNCH_COUNTERS, deltas):
+        setattr(module, name, getattr(module, name) + delta)
+
+
+def _replays_on(device: torch.device) -> bool:
+    """Whether StreamingPipeline.step_multi captures and replays calls on
+    ``device``."""
+    return device.type == "cuda"
+
+
+def _layout(tree) -> tuple:
+    """The shape and dtype of each tensor of a tree, in order."""
+    out = []
+    _tree_map(lambda leaf: out.append((tuple(leaf.shape), leaf.dtype)), tree)
+    return tuple(out)
+
+
+def graph_key(state: PipelineState, shape, *, arrays, analysis_params, agc_params, path, ml_model, with_led,
+              with_viewer) -> tuple:
+    """Everything a captured K-hop call bakes in, for (K, B, hop) samples of
+    ``shape``: the state's layout, K, B and the hop, the VQT arrays (a
+    rebuild replaces them), the analysis and AGC parameters, the path, the
+    ML model and the output stages. The samples and ``dt`` are the graph's
+    inputs, whatever their form. A call whose key matches a captured one
+    can replay it."""
+    return (_layout(state), tuple(shape), id(arrays), analysis_params, agc_params, path, id(ml_model), with_led,
+            with_viewer)
+
+
+def _record(fn, device):
+    """Captures ``fn()`` on ``device`` as one CUDA graph, without running
+    it: (a function that replays the graph on the device's current stream,
+    what ``fn`` returned)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(device), torch.cuda.graph(
+        graph, stream=torch.cuda.Stream(device), capture_error_mode="thread_local"
+    ):
+        result = fn()
+
+    def replay():
+        with torch.cuda.device(device):
+            graph.replay()
+
+    return replay, result
+
+
+@dataclass
+class _Replay:
+    """One captured K-hop call: what replays it, the inputs it reads
+    (samples and the (B,) frame time), the state it reads and writes back in
+    place, the outputs it writes, the hand-written kernels' launches it
+    holds (as ``_launch_counts`` counts them), and what else it reads by
+    address (kept alive with it)."""
+
+    launch: object
+    chunks: torch.Tensor
+    dt: torch.Tensor
+    state: PipelineState
+    outputs: PipelineOutputs
+    launches: tuple
+    reads: tuple
+
+
 class StreamingPipeline:
     """Convenience wrapper owning the kernel arrays and state.
 
@@ -337,6 +418,11 @@ class StreamingPipeline:
     training window). The pipeline serves its own copy of the model
     (models/ml_system.py::serving_copy), on its device and frozen:
     ``self.ml_model``.
+
+    On a CUDA device :meth:`step_multi` replays each K-hop call as one CUDA
+    graph after the first call of its :func:`graph_key`; ``graph_counts``
+    counts what each call did (``GRAPH_COUNTERS``). ``self.state`` stays a
+    value that later calls leave as they found it, as on the eager path.
     """
 
     def __init__(
@@ -369,8 +455,26 @@ class StreamingPipeline:
         self.with_viewer = with_viewer
         self.kernel = get_kernel(self.vqt_params)
         self.arrays = make_vqt_arrays(self.kernel, path=path, fast=fast, device=self.device)
+        self.graph_counts = dict.fromkeys(GRAPH_COUNTERS, 0)
+        self._graphs = OrderedDict()  # graph_key -> _Replay, the most recently used last
+        self._graph_state = None  # the state buffers of the newest capture
         self.state = self._fresh_state(n_streams, buffer_len)
         self.delay_secs = self.kernel.delay_secs
+
+    @property
+    def state(self) -> PipelineState:
+        """The carried state, a value that later calls leave as it is.
+        After a replayed call it lives in the graph's state buffers, which
+        the next replay writes in place, so reading it then returns a copy
+        of them (one a replay, however often it is read)."""
+        if self._state_in_graph and self._state_copy is None:
+            self._state_copy = _tree_map(torch.Tensor.clone, self._state)
+        return self._state_copy if self._state_in_graph else self._state
+
+    @state.setter
+    def state(self, value: PipelineState) -> None:
+        # set from outside or by an eager call: the next replay copies it in
+        self._state, self._state_in_graph, self._state_copy = value, False, None
 
     def _fresh_state(self, n_streams: int, buffer_len: int | None) -> PipelineState:
         return init_pipeline_state(
@@ -394,18 +498,88 @@ class StreamingPipeline:
 
     def step(self, chunk, dt) -> PipelineOutputs:
         with annotate("pipeline.call"):
+            self.graph_counts["graph_eager_calls"] += 1
             self.state, out = pipeline_step(
                 self.arrays, self.state, self._samples(chunk), dt, **self._kwargs()
             )
         return out
 
     def step_multi(self, chunks, dt) -> PipelineOutputs:
-        """(K, B, hop) chunks -> K hops, outputs stacked along K."""
+        """(K, B, hop) chunks -> K hops, outputs stacked along K.
+
+        On a CUDA device the first call of a :func:`graph_key` runs eagerly
+        and then captures the call as one CUDA graph (the capture runs
+        nothing); a later call with that key copies its samples and ``dt``
+        into the graph's inputs, copies a state set since by other means (a
+        reset, a rebuild, an assignment) into the graph's state, and replays
+        it, without synchronising. The replay writes the same state and
+        outputs as the eager call, and returns fresh output tensors, which
+        later calls leave as they are. The pipeline keeps the GRAPHS_KEPT
+        most recently used graphs. On the CPU, and for K = 0, every call
+        runs eagerly."""
         with annotate("pipeline.call"):
-            self.state, out = pipeline_step_multi(
-                self.arrays, self.state, self._samples(chunks), dt, **self._kwargs()
-            )
+            x = self._samples(chunks)
+            key = None
+            if _replays_on(self.device) and len(x):
+                key = graph_key(self._state, x.shape, arrays=self.arrays, analysis_params=self.analysis_params,
+                                agc_params=self.agc_params, path=self.path, ml_model=self.ml_model,
+                                with_led=self.with_led, with_viewer=self.with_viewer)
+                replay = self._graphs.get(key)
+                if replay is not None:
+                    self._graphs.move_to_end(key)
+                    with annotate("pipeline.replay"):
+                        return self._replay(replay, x, dt)
+            self.graph_counts["graph_eager_calls"] += 1
+            self.state, out = pipeline_step_multi(self.arrays, self.state, x, dt, **self._kwargs())
+            if key is not None:
+                with annotate("pipeline.capture"):
+                    self._graphs[key] = self._capture(x)
+                if len(self._graphs) > GRAPHS_KEPT:
+                    self._graphs.popitem(last=False)
         return out
+
+    def _capture(self, x: torch.Tensor) -> _Replay:
+        """Captures ``pipeline_step_multi`` over state buffers shaped like
+        ``self.state`` (shared with the newest capture of the same layout),
+        a (K, B, hop) sample buffer and a (B,) frame time. Its last hop's
+        state is copied back into the state buffers inside the graph. The
+        launch counters keep what the capture counted for the replays."""
+        if self._graph_state is None or _layout(self._graph_state) != _layout(self._state):
+            self._graph_state = _tree_map(torch.empty_like, self._state)
+        state = self._graph_state
+        chunks = torch.empty_like(x)
+        dt = torch.empty(x.shape[1], dtype=torch.float32, device=x.device)
+        kwargs = self._kwargs()
+        arrays = self.arrays
+
+        def call():
+            new, outputs = pipeline_step_multi(arrays, state, chunks, dt, **kwargs)
+            _tree_map(torch.Tensor.copy_, state, new)
+            return outputs
+
+        before = _launch_counts()
+        launch, outputs = _record(call, self.device)
+        # the wrappers counted the kernels they recorded: nothing ran yet
+        recorded = tuple(after - b for after, b in zip(_launch_counts(), before))
+        _add_launch_counts(-n for n in recorded)
+        self.graph_counts["graph_captures"] += 1
+        return _Replay(launch, chunks, dt, state, outputs, recorded, reads=(arrays, self.ml_model))
+
+    def _replay(self, replay: _Replay, x: torch.Tensor, dt) -> PipelineOutputs:
+        if not self._state_in_graph or self._state is not replay.state:
+            _tree_map(torch.Tensor.copy_, replay.state, self._state)
+            self.graph_counts["graph_state_stagings"] += 1
+        replay.chunks.copy_(x)
+        if isinstance(dt, torch.Tensor) or np.ndim(dt):
+            replay.dt.copy_(dt_batch(dt, len(replay.dt), replay.dt.device))
+        else:
+            replay.dt.fill_(float(dt))
+        replay.launch()
+        _add_launch_counts(replay.launches)
+        self._state, self._state_in_graph, self._state_copy = replay.state, True, None
+        self.graph_counts["graph_replays"] += 1
+        # the next replay writes the same buffers: the caller gets copies
+        return _tree_map(torch.Tensor.clone, replay.outputs)
 
     def rebuild(self, vqt_params: VqtParameters) -> None:
         """Swaps in a new VQT parameter set while streaming. The ring audio
@@ -415,7 +589,7 @@ class StreamingPipeline:
         pipeline cannot host (different sample rate, n_fft beyond the ring
         length, or a bin-layout change while an ML model is attached: its
         trained params are layout-bound)."""
-        buffer_len = int(self.state.ring.buffer.shape[1])
+        buffer_len = int(self._state.ring.buffer.shape[1])
         kernel, arrays, layout_changed = build_rebuilt_arrays(
             self.vqt_params, vqt_params, max_n_fft=buffer_len, path=self.path, fast=self.fast,
             ml_attached=self.ml_model is not None, device=self.device,
@@ -424,8 +598,9 @@ class StreamingPipeline:
         self.kernel = kernel
         self.vqt_params = vqt_params
         self.delay_secs = kernel.delay_secs
+        self._graphs.clear()  # they read the old arrays
         if layout_changed:
-            fresh = self._fresh_state(int(self.state.ring.buffer.shape[0]), buffer_len)
+            fresh = self._fresh_state(int(self._state.ring.buffer.shape[0]), buffer_len)
             # audio survives the swap
             self.state = PipelineState(ring=self.state.ring, analysis=fresh.analysis, ml=fresh.ml, balls=fresh.balls)
 
@@ -435,5 +610,5 @@ class StreamingPipeline:
         ball-fade carry return to their fresh values. Other slots are
         untouched. Outputs returned earlier (which share tensors with the
         state) are left as they were."""
-        fresh = self._fresh_state(1, int(self.state.ring.buffer.shape[1]))
-        self.state = reset_state_row(self.state, fresh, idx)
+        fresh = self._fresh_state(1, int(self._state.ring.buffer.shape[1]))
+        self.state = reset_state_row(self._state, fresh, idx)

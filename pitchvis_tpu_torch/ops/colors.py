@@ -170,7 +170,10 @@ def static_table(build, *key, device: torch.device) -> torch.Tensor:
     return _table_on(build, key, torch.device(device))
 
 
-@functools.lru_cache(maxsize=32)
+# never evicted: a CUDA graph captured over a table reads it by address
+# (models/pipeline.py::StreamingPipeline.step_multi); one entry a table,
+# bin layout and device
+@functools.cache
 def _table_on(build, key: tuple, device: torch.device) -> torch.Tensor:
     host = _table_on(build, key, torch.device("cpu")) if device.type != "cpu" else build(*key)
     return host.to(device)

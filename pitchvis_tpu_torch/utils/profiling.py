@@ -25,7 +25,10 @@ kernel launch to its span. Span names: ``pipeline.call``, ``pipeline.hop``,
 ``pipeline.stack``, ``stage.ring``, ``stage.vqt``, ``stage.analysis`` (with
 ``analysis.smooth``, ``analysis.peaks``, ``analysis.core`` inside it),
 ``stage.outputs``, and ``server.hop`` around the server's VQT, analysis and
-output stages.
+output stages. A ``StreamingPipeline.step_multi`` call that replays a CUDA
+graph records ``pipeline.call`` and ``pipeline.replay`` only: the stage
+spans record the eager calls, and a key's first call also records them
+once more inside ``pipeline.capture``, as the graph is captured.
 """
 
 from __future__ import annotations
@@ -290,10 +293,12 @@ def call_times(spans: list) -> dict:
 
 def debug_report(pipeline, timer: StageTimer | None = None, spans: SpanLog | None = None) -> dict:
     """Pipeline health snapshot (the debug-overlay data of common.rs:148-334
-    as a dict): algorithmic delay, kernel structure, stage timings, and the
+    as a dict): algorithmic delay, kernel structure, stage timings, the
     torch device the pipeline runs on (its type, and the names of the cards
-    when it is CUDA). With ``spans``, the host time of each span of the last
-    call it recorded (:func:`call_times`) under ``"spans"``."""
+    when it is CUDA), and a StreamingPipeline's CUDA graph counters
+    (``graph_counts``) under ``"graphs"``. With ``spans``, the host time of
+    each span of the last call it recorded (:func:`call_times`) under
+    ``"spans"``."""
     from ..kernel.builder import kernel_stats
 
     device = torch.device(pipeline.device)
@@ -308,6 +313,8 @@ def debug_report(pipeline, timer: StageTimer | None = None, spans: SpanLog | Non
         "backend": device.type,
         "devices": devices,
     }
+    if hasattr(pipeline, "graph_counts"):
+        report["graphs"] = dict(pipeline.graph_counts)
     if timer is not None:
         report["stages"] = timer.report()
     if spans is not None:
