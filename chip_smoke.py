@@ -3331,6 +3331,7 @@ def graph_phase(torch) -> dict:
     from pitchvis_tpu_torch import StreamingPipeline, VqtParameters
     from pitchvis_tpu_torch.core.config import VqtRange
     from pitchvis_tpu_torch.models.pipeline import _launch_counts as launch_counts
+    from pitchvis_tpu_torch.models.pipeline import _nbytes as nbytes
     from pitchvis_tpu_torch.models.pipeline import _tree_map as tree_map
     from pitchvis_tpu_torch.models.pipeline import pipeline_step_multi
     from pitchvis_tpu_torch.models.pitch_mlp import DEFAULT_T, PitchMLP
@@ -3376,7 +3377,7 @@ def graph_phase(torch) -> dict:
     before = launch_counts()
     cpu_rows = calls(pipe, ref, 1 + GRAPH_CALLS, lambda c: dt)[:GRAPH_CPU_CALLS]
     want_counts = {"graph_captures": 1, "graph_replays": GRAPH_CALLS, "graph_eager_calls": 1,
-                   "graph_state_stagings": 1}
+                   "graph_state_stagings": 1, "graph_output_bytes": GRAPH_CALLS * nbytes(cpu_rows[0][0])}
     check(pipe.graph_counts == want_counts, f"graph counters {pipe.graph_counts}, expected {want_counts}")
     # the VQT, peaks and ring push launches of both pipelines' calls: a
     # capture counts none, a replay its 16 hops'
@@ -3453,7 +3454,7 @@ def graph_phase(torch) -> dict:
                       ("ML", dict(with_led=True, ml_model=model, ml_params=model.state_dict()))):
         make = lambda: StreamingPipeline(GRAPH_STAGE_B, params, path="pallas", fast=False, device="cuda", **kw)
         pipe, ref = make(), make()
-        calls(pipe, ref, 6, lambda c: dt * (1.0 + 0.1 * c), between, small)
+        kept = calls(pipe, ref, 6, lambda c: dt * (1.0 + 0.1 * c), between, small)
         # a per-stream dt
         per_stream = torch.linspace(0.5, 1.5, GRAPH_STAGE_B, device="cuda") * dt
         for c in range(3):
@@ -3464,7 +3465,8 @@ def graph_phase(torch) -> dict:
             same(pipe.state, ref.state, f"{label}, per-stream dt, state after call {c}")
         # the rebuild before call 3 captures again; a per-stream dt replays
         # the same graph as a scalar one
-        want_counts = {"graph_captures": 2, "graph_replays": 7, "graph_eager_calls": 2, "graph_state_stagings": 3}
+        want_counts = {"graph_captures": 2, "graph_replays": 7, "graph_eager_calls": 2, "graph_state_stagings": 3,
+                       "graph_output_bytes": 7 * nbytes(kept[0][0])}
         check(pipe.graph_counts == want_counts, f"graph, {label}: counters {pipe.graph_counts}, expected {want_counts}")
         print(f"graph, {label} stage at B={GRAPH_STAGE_B}: 9 calls torch.equal to the eager path in state and every "
               f"output leaf (a dt that changes from call to call, reset_stream(7) before call 2, a rebuild before "
@@ -3505,6 +3507,89 @@ def graph_phase(torch) -> dict:
     print(f"graph: the replayed outputs of {GRAPH_CPU_B} streams over {GRAPH_CPU_CALLS * GRAPH_K} hops against the "
           f"CPU: {json.dumps(numbers['card_vs_cpu'])} (tolerances: gains rtol {HOP_GAIN_RTOL}, x_vqt {HOP_DB_ATOL} dB, "
           f"{HOP_FLIP_SHARE} of the peaks, the rest {HOP_ATOL} where the peaks agree)")
+    return numbers
+
+
+VIEWER_CELL_B = 12288  # phase 14: the streams of the pv_viewer.capacity_12k cell
+VIEWER_CELL_K = 4  # its hops a call
+VIEWER_CELL_CALLS = 3  # replayed calls held to the eager path under sync-debug
+VIEWER_CELL_TIMED = 5  # replayed calls timed by CUDA events
+
+
+def viewer_cell_phase(torch) -> dict:
+    """Phase 14: step_multi's CUDA graph at the pv_viewer.capacity_12k
+    cell's shape (12,288 streams, 4 hops a call, VqtParameters(): 588 bins,
+    a 367-sample hop, f32 with the 3xTF32 VQT, every display output). A
+    first call captures; then VIEWER_CELL_CALLS replays, each beside the
+    eager pipeline_step_multi of a second pipeline, both under
+    set_sync_debug_mode("error"), are torch.equal to it in state and every
+    output leaf. Prints the peak device memory, a replayed call's device ms
+    (CUDA events), its kernels (profiler) and the bytes a replay clones out
+    of the graph (graph_output_bytes). Returns its numbers."""
+    from pitchvis_tpu_torch import StreamingPipeline, VqtParameters
+    from pitchvis_tpu_torch.models.pipeline import pipeline_step_multi
+
+    params = VqtParameters()
+    b, k = VIEWER_CELL_B, VIEWER_CELL_K
+    hop = int(params.sr / 60.0)
+    dt = hop / params.sr
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    audio = synthetic_audio(torch, b, 2 * k * hop, params.sr, gen)
+    audio[31::32] = 0.0  # one stream in 32 silent, as in the cell
+    banks = audio.reshape(b, 2, k, hop).permute(1, 2, 0, 3).contiguous()  # (2, K, B, hop)
+    del audio
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cell = dict(path="pallas", fast=False, with_viewer=True, device="cuda")
+    pipe, ref = StreamingPipeline(b, params, **cell), StreamingPipeline(b, params, **cell)
+    pipe.step_multi(banks[0], dt)  # eager, then the capture
+    ref.state, _ = pipeline_step_multi(ref.arrays, ref.state, banks[0], dt, **ref._kwargs())
+    for c in range(1, 1 + VIEWER_CELL_CALLS):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = pipe.step_multi(banks[c % 2], dt)
+            ref.state, want = pipeline_step_multi(ref.arrays, ref.state, banks[c % 2], dt, **ref._kwargs())
+            state = pipe.state
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        for what, got, expected in (("outputs", out, want), ("state", state, ref.state)):
+            diff = tree_diff(torch, got, expected, what)
+            check(diff is None, f"viewer cell: call {c}: {diff} differs from the eager path")
+        del out, want, state
+    counts = dict(pipe.graph_counts)
+    check(counts["graph_replays"] == VIEWER_CELL_CALLS and counts["graph_captures"] == 1,
+          f"viewer cell: graph counters {counts}")
+    numbers = {"peak_gib": torch.cuda.max_memory_allocated() / 2**30, "graph_counts": counts,
+               "output_bytes_per_call": counts["graph_output_bytes"] / counts["graph_replays"]}
+    del ref
+    torch.cuda.empty_cache()
+    print(f"viewer cell (B={b}, K={k}, 588 bins, every display output): {VIEWER_CELL_CALLS} replays and the eager "
+          f"pipeline_step_multi under set_sync_debug_mode(\"error\"), torch.equal in state and every output leaf; "
+          f"counters {counts}; {numbers['output_bytes_per_call'] / 1e9:.3f} GB cloned out of the graph a call; "
+          f"peak device memory {numbers['peak_gib']:.2f} GiB (two pipelines, one call's outputs of each)")
+
+    times = []
+    for c in range(VIEWER_CELL_TIMED):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        pipe.step_multi(banks[c % 2], dt)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    numbers["call_device_ms"] = float(np.median(times))
+    numbers["realtime_x"] = b * k * dt * 1e3 / numbers["call_device_ms"]
+    ops = []
+    n_ops, numbers["traced_call_device_ms"] = device_trace(torch, lambda: pipe.step_multi(banks[0], dt), ops=ops)
+    copies = [ms for name, ms in ops if name.startswith(("Memcpy", "Memset"))]
+    numbers.update(kernels_per_hop=(n_ops - len(copies)) / k, copies=len(copies), copy_ms=sum(copies))
+    print(f"viewer cell: a replayed call {numbers['call_device_ms']:.3f} ms by CUDA events (median of "
+          f"{VIEWER_CELL_TIMED}; {numbers['call_device_ms'] / k:.3f} a hop, {numbers['realtime_x']:.0f}x realtime); "
+          f"traced: {numbers['kernels_per_hop']:.2f} kernels a hop, {len(copies)} copies or sets taking "
+          f"{numbers['copy_ms']:.3f} ms, {numbers['traced_call_device_ms']:.3f} device ms in all")
+    del pipe
+    torch.cuda.empty_cache()
     return numbers
 
 
@@ -4047,6 +4132,9 @@ def main() -> None:
     # ---- 13. the CUDA graph of step_multi ---------------------------------------------
     graph_numbers = graph_phase(torch)
 
+    # ---- 14. the viewer cell's shape ----------------------------------------------------
+    viewer_cell_numbers = viewer_cell_phase(torch)
+
     print(json.dumps({"vqt_times": vqt_times}))
     print(json.dumps({"analysis_step": analysis_profile}))
     print(json.dumps({"output_stages": stage_numbers}))
@@ -4057,6 +4145,7 @@ def main() -> None:
     print(json.dumps({"bench": bench_numbers}))
     print(json.dumps({"multigpu": mesh_numbers}))
     print(json.dumps({"graph": graph_numbers}))
+    print(json.dumps({"viewer_cell": viewer_cell_numbers}))
     print(json.dumps({"kernels": [kernels[n] for n in order]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -191,11 +191,13 @@ def derived_stages(
         if ml_model is not None:
             if ml_state is None:
                 raise ValueError("ml_model needs the ML history (init_pipeline_state(ml_t_window=...))")
-            new_ml, ml_midi = ml_step_batch(ml_model, ml_params, ml_state, outputs.x_vqt_smoothed)
+            with annotate("outputs.ml"):
+                new_ml, ml_midi = ml_step_batch(ml_model, ml_params, ml_state, outputs.x_vqt_smoothed)
 
         led = None
         if with_led:
-            led = led_frame_values(rng_cfg, outputs.peaks, outputs.peak_center, outputs.peak_size)
+            with annotate("outputs.led"):
+                led = led_frame_values(rng_cfg, outputs.peaks, outputs.peak_center, outputs.peak_size)
 
         new_balls = balls_state
         viewer = None
@@ -204,18 +206,19 @@ def derived_stages(
                 raise ValueError(
                     "with_viewer=True needs the ball carry (init_pipeline_state(with_viewer=True))"
                 )
-            new_balls, ball_out = update_balls(
-                rng_cfg, balls_state, outputs.peaks, outputs.peak_center, outputs.peak_size,
-                outputs.calmness, outputs.pitch_accuracy, outputs.pitch_deviation, dt_b,
-            )
-            viewer = ViewerOutputs(
-                balls=ball_out,
-                chroma=chroma_vector(outputs.x_vqt_smoothed, rng_cfg),
-                bloom=bloom_intensity(outputs.scene_calmness),
-                spectrogram_row=spectrogram_row_vqt(rng_cfg, outputs.x_vqt_smoothed),
-                bass=bass_spiral(rng_cfg, outputs.peaks, outputs.peak_center, outputs.peak_size),
-                calmness_histogram=calmness_histogram(outputs.calmness),
-            )
+            with annotate("outputs.viewer"):
+                new_balls, ball_out = update_balls(
+                    rng_cfg, balls_state, outputs.peaks, outputs.peak_center, outputs.peak_size,
+                    outputs.calmness, outputs.pitch_accuracy, outputs.pitch_deviation, dt_b,
+                )
+                viewer = ViewerOutputs(
+                    balls=ball_out,
+                    chroma=chroma_vector(outputs.x_vqt_smoothed, rng_cfg),
+                    bloom=bloom_intensity(outputs.scene_calmness),
+                    spectrogram_row=spectrogram_row_vqt(rng_cfg, outputs.x_vqt_smoothed),
+                    bass=bass_spiral(rng_cfg, outputs.peaks, outputs.peak_center, outputs.peak_size),
+                    calmness_histogram=calmness_histogram(outputs.calmness),
+                )
         return new_ml, ml_midi, led, new_balls, viewer
 
 
@@ -323,9 +326,11 @@ def pipeline_step_multi(
 
 
 # StreamingPipeline.graph_counts: calls captured, calls replayed, calls run
-# eagerly (step(), K = 0, a device without graphs, a key's first call), and
-# copies of a state set from outside into a graph's state buffers
-GRAPH_COUNTERS = ("graph_captures", "graph_replays", "graph_eager_calls", "graph_state_stagings")
+# eagerly (step(), K = 0, a device without graphs, a key's first call),
+# copies of a state set from outside into a graph's state buffers, and the
+# bytes of outputs cloned out of the graphs' pools, summed over the replays
+GRAPH_COUNTERS = ("graph_captures", "graph_replays", "graph_eager_calls", "graph_state_stagings",
+                  "graph_output_bytes")
 # how many captured calls a pipeline keeps, the most recently used; the
 # least recently used beyond them is dropped with its memory pool
 GRAPHS_KEPT = 4
@@ -347,6 +352,13 @@ def _replays_on(device: torch.device) -> bool:
     """Whether StreamingPipeline.step_multi captures and replays calls on
     ``device``."""
     return device.type == "cuda"
+
+
+def _nbytes(tree) -> int:
+    """The bytes of the tensors of a tree."""
+    sizes = []
+    _tree_map(lambda leaf: sizes.append(leaf.nbytes), tree)
+    return sum(sizes)
 
 
 def _layout(tree) -> tuple:
@@ -389,15 +401,16 @@ def _record(fn, device):
 class _Replay:
     """One captured K-hop call: what replays it, the inputs it reads
     (samples and the (B,) frame time), the state it reads and writes back in
-    place, the outputs it writes, the hand-written kernels' launches it
-    holds (as ``_launch_counts`` counts them), and what else it reads by
-    address (kept alive with it)."""
+    place, the outputs it writes and their bytes, the hand-written kernels'
+    launches it holds (as ``_launch_counts`` counts them), and what else it
+    reads by address (kept alive with it)."""
 
     launch: object
     chunks: torch.Tensor
     dt: torch.Tensor
     state: PipelineState
     outputs: PipelineOutputs
+    output_bytes: int
     launches: tuple
     reads: tuple
 
@@ -563,7 +576,8 @@ class StreamingPipeline:
         recorded = tuple(after - b for after, b in zip(_launch_counts(), before))
         _add_launch_counts(-n for n in recorded)
         self.graph_counts["graph_captures"] += 1
-        return _Replay(launch, chunks, dt, state, outputs, recorded, reads=(arrays, self.ml_model))
+        return _Replay(launch, chunks, dt, state, outputs, _nbytes(outputs), recorded,
+                       reads=(arrays, self.ml_model))
 
     def _replay(self, replay: _Replay, x: torch.Tensor, dt) -> PipelineOutputs:
         if not self._state_in_graph or self._state is not replay.state:
@@ -579,6 +593,7 @@ class StreamingPipeline:
         self._state, self._state_in_graph, self._state_copy = replay.state, True, None
         self.graph_counts["graph_replays"] += 1
         # the next replay writes the same buffers: the caller gets copies
+        self.graph_counts["graph_output_bytes"] += replay.output_bytes
         return _tree_map(torch.Tensor.clone, replay.outputs)
 
     def rebuild(self, vqt_params: VqtParameters) -> None:

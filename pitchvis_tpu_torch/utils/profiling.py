@@ -24,8 +24,9 @@ enters ``torch.profiler.record_function(name)``, so the profiler links each
 kernel launch to its span. Span names: ``pipeline.call``, ``pipeline.hop``,
 ``pipeline.stack``, ``stage.ring``, ``stage.vqt``, ``stage.analysis`` (with
 ``analysis.smooth``, ``analysis.peaks``, ``analysis.core`` inside it),
-``stage.outputs``, and ``server.hop`` around the server's VQT, analysis and
-output stages. A ``StreamingPipeline.step_multi`` call that replays a CUDA
+``stage.outputs`` (with ``outputs.ml``, ``outputs.led``, ``outputs.viewer``
+inside it, one for each output stage that runs, in that order), and
+``server.hop`` around the server's VQT, analysis and output stages. A ``StreamingPipeline.step_multi`` call that replays a CUDA
 graph records ``pipeline.call`` and ``pipeline.replay`` only: the stage
 spans record the eager calls, and a key's first call also records them
 once more inside ``pipeline.capture``, as the graph is captured.
@@ -135,10 +136,10 @@ def trace(log_dir: str, activities=None, filename: str = "trace.json"):
     prof.export_chrome_trace(os.path.join(log_dir, filename))
 
 
-# records a log holds unless told otherwise: a 45-s window of the serial
-# capacity deployment (3840 streams, 16 hops a call) finishes some 130 spans
-# a call in 200-350 calls
-SPAN_CAPACITY = 1 << 16
+# records a log holds unless told otherwise: a 45-s window of eager calls of
+# the serial capacity deployment (3840 streams, 16 hops a call) finishes some
+# 150 spans a call in 200-350 calls
+SPAN_CAPACITY = 1 << 17
 
 _NULL = contextlib.nullcontext()
 _active = None  # the SpanLog that spans go to, while recording() is on
@@ -296,7 +297,8 @@ def debug_report(pipeline, timer: StageTimer | None = None, spans: SpanLog | Non
     as a dict): algorithmic delay, kernel structure, stage timings, the
     torch device the pipeline runs on (its type, and the names of the cards
     when it is CUDA), and a StreamingPipeline's CUDA graph counters
-    (``graph_counts``) under ``"graphs"``. With ``spans``, the host time of
+    (``graph_counts``, with ``graph_output_bytes``, the bytes its replays
+    cloned out of the graphs) under ``"graphs"``. With ``spans``, the host time of
     each span of the last call it recorded (:func:`call_times`) under
     ``"spans"``."""
     from ..kernel.builder import kernel_stats

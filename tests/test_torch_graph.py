@@ -20,6 +20,7 @@ from pitchvis_tpu_torch.core.config import AgcParameters, AnalysisParameters, Vq
 from pitchvis_tpu_torch.models import pipeline
 from pitchvis_tpu_torch.models.pipeline import StreamingPipeline, graph_key, pipeline_step_multi
 from pitchvis_tpu_torch.models.pitch_mlp import DEFAULT_T, PitchMLP
+from pitchvis_tpu_torch.utils.profiling import debug_report
 
 PARAMS = VqtParameters(
     sr=22050.0, n_fft=8192, range=VqtRange(min_freq=110.0, octaves=4, buckets_per_octave=24),
@@ -150,7 +151,7 @@ def test_cpu_step_multi_stays_eager():
         _assert_equal(pipe.state, state, f"state after call {call}")
     pipe.step(banks[0][0], DT)
     assert pipe.graph_counts == {"graph_captures": 0, "graph_replays": 0, "graph_eager_calls": 4,
-                                 "graph_state_stagings": 0}
+                                 "graph_state_stagings": 0, "graph_output_bytes": 0}
     assert pipe._graphs == {}
 
 
@@ -211,7 +212,8 @@ def _between(pipe, variant, call, saved):
 def run_replays(device, variant, calls=5):
     """``calls`` calls of step_multi over two alternating banks, each held
     to pipeline_step_multi in outputs and state, and every call's returned
-    outputs still as they were after the last. Returns graph_counts."""
+    outputs still as they were after the last. Returns graph_counts and
+    the bytes of each call's outputs."""
     pipe, ref = _pipeline_pair(device, variant)
     banks = [b.to(device) for b in _banks()]
     launches = pipeline._launch_counts()
@@ -240,15 +242,20 @@ def run_replays(device, variant, calls=5):
     per_hop = (1, 2, 1) if device == "cuda" else (0, 0, 0)
     counted = tuple(a - b for a, b in zip(pipeline._launch_counts(), launches))
     assert counted == tuple(2 * calls * K * n for n in per_hop), f"{variant}: launches {counted}"
-    return pipe.graph_counts
+    return pipe.graph_counts, [pipeline._nbytes(out) for out, _ in kept]
 
 
-def _expected(variant, calls=5):
+def _expected(variant, sizes):
+    """The graph counters after the calls whose outputs take ``sizes``
+    bytes: the replays clone their outputs out of the graph."""
+    calls = len(sizes)
     between = VARIANTS[variant].get("between")
     if between in ("rebuild", "rebuild_layout"):  # calls 0 and 2 capture
-        return {"graph_captures": 2, "graph_replays": calls - 2, "graph_eager_calls": 2, "graph_state_stagings": 2}
+        return {"graph_captures": 2, "graph_replays": calls - 2, "graph_eager_calls": 2, "graph_state_stagings": 2,
+                "graph_output_bytes": sum(sizes) - sizes[0] - sizes[2]}
     stagings = 2 if between in ("reset", "restore") else 1  # the first replay stages the eager call's state
-    return {"graph_captures": 1, "graph_replays": calls - 1, "graph_eager_calls": 1, "graph_state_stagings": stagings}
+    return {"graph_captures": 1, "graph_replays": calls - 1, "graph_eager_calls": 1, "graph_state_stagings": stagings,
+            "graph_output_bytes": sum(sizes) - sizes[0]}
 
 
 def _rerun_record(fn, device):
@@ -267,7 +274,8 @@ def _rerun_record(fn, device):
 def test_replay_logic_on_the_cpu(monkeypatch, variant):
     monkeypatch.setattr(pipeline, "_replays_on", lambda device: True)
     monkeypatch.setattr(pipeline, "_record", _rerun_record)
-    assert run_replays("cpu", variant) == _expected(variant)
+    counts, sizes = run_replays("cpu", variant)
+    assert counts == _expected(variant, sizes)
 
 
 def test_captures_count_no_launch_and_replays_count_theirs(monkeypatch):
@@ -298,12 +306,13 @@ def test_pipeline_keeps_the_most_recently_used_graphs(monkeypatch):
     bank = _banks(n_banks=1, k=pipeline.GRAPHS_KEPT + 1)[0]
     for k in range(1, pipeline.GRAPHS_KEPT + 1):
         pipe.step_multi(bank[:k], DT)
-    pipe.step_multi(bank[:1], DT)  # a replay: K = 1 is now the newest
+    replayed = pipe.step_multi(bank[:1], DT)  # a replay: K = 1 is now the newest
     pipe.step_multi(bank, DT)  # a new key: K = 2, the oldest, is dropped
     assert [key[1][0] for key in pipe._graphs] == [3, 4, 1, pipeline.GRAPHS_KEPT + 1]
     pipe.step_multi(bank[:2], DT)  # captured again
     assert pipe.graph_counts == {"graph_captures": pipeline.GRAPHS_KEPT + 2, "graph_replays": 1,
-                                 "graph_eager_calls": pipeline.GRAPHS_KEPT + 2, "graph_state_stagings": 1}
+                                 "graph_eager_calls": pipeline.GRAPHS_KEPT + 2, "graph_state_stagings": 1,
+                                 "graph_output_bytes": pipeline._nbytes(replayed)}
 
 
 @pytest.fixture
@@ -316,4 +325,22 @@ def card():
 @pytest.mark.card
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 def test_replays_equal_the_eager_path_on_the_card(card, variant):
-    assert run_replays(card, variant) == _expected(variant)
+    counts, sizes = run_replays(card, variant)
+    assert counts == _expected(variant, sizes)
+
+
+def test_debug_report_gives_the_bytes_replays_clone(monkeypatch):
+    """``graph_output_bytes`` stays 0 while calls run eagerly and grows by a
+    call's output bytes with each replay; debug_report carries it."""
+    bank = _banks(n_banks=1)[0]
+    eager = StreamingPipeline(B, PARAMS, path="pallas", with_viewer=True, device="cpu")
+    for _ in range(3):
+        eager.step_multi(bank, DT)
+    assert debug_report(eager)["graphs"]["graph_output_bytes"] == 0
+    monkeypatch.setattr(pipeline, "_replays_on", lambda device: True)
+    monkeypatch.setattr(pipeline, "_record", _rerun_record)
+    pipe = StreamingPipeline(B, PARAMS, path="pallas", with_viewer=True, device="cpu")
+    outs = [pipe.step_multi(bank, DT) for _ in range(3)]
+    graphs = debug_report(pipe)["graphs"]
+    call_bytes = sum(leaf.nbytes for leaf in _leaves(outs[1]).values())
+    assert graphs["graph_replays"] == 2 and graphs["graph_output_bytes"] == 2 * call_bytes > 0

@@ -15,6 +15,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from pitchvis_tpu_torch import StreamingPipeline
+from pitchvis_tpu_torch.models.pitch_mlp import DEFAULT_T, PitchMLP
 from pitchvis_tpu_torch.runtime.server import StreamServer
 from pitchvis_tpu_torch.utils import profiling
 
@@ -27,6 +28,7 @@ HOP = 367
 DT = HOP / SMALL_PARAMS.sr
 STAGES = ("stage.ring", "stage.vqt", "stage.analysis", "stage.outputs")
 ANALYSIS = ("analysis.smooth", "analysis.peaks", "analysis.core")
+OUTPUTS = ("outputs.ml", "outputs.led", "outputs.viewer")  # in the order derived_stages runs them
 
 
 def _pipe():
@@ -57,7 +59,7 @@ def test_off_returns_one_shared_null_context_and_records_nothing():
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         _pipe().step_multi(_chunks(), DT)
     assert log.spans() == [] and log.dropped == 0
-    names = {"pipeline.call", "pipeline.hop", "pipeline.stack", *STAGES, *ANALYSIS}
+    names = {"pipeline.call", "pipeline.hop", "pipeline.stack", *STAGES, *ANALYSIS, *OUTPUTS}
     assert not names & {e.name for e in prof.events()}  # no profiler range either
 
 
@@ -74,7 +76,7 @@ def test_step_multi_records_each_stage_of_each_hop():
         by.setdefault(s.name, []).append(s)
     assert {n: len(v) for n, v in by.items()} == {
         "pipeline.call": 1, "pipeline.hop": K, "pipeline.stack": 1,
-        **{n: K for n in STAGES}, **{n: K for n in ANALYSIS},
+        **{n: K for n in STAGES}, **{n: K for n in ANALYSIS}, "outputs.led": K,
     }
     index = {s.index: s for s in spans}
     (call,) = by["pipeline.call"]
@@ -111,7 +113,8 @@ def test_a_second_call_gets_the_next_call_number():
     last = log.last_call()
     assert [s.index for s in last] == [s.index for s in spans if s.call == 1]
     times = profiling.call_times(last)
-    assert times["pipeline.hop"]["count"] == 1 and set(times) == {"pipeline.call", "pipeline.hop", *STAGES, *ANALYSIS}
+    assert times["pipeline.hop"]["count"] == 1
+    assert set(times) == {"pipeline.call", "pipeline.hop", *STAGES, *ANALYSIS, "outputs.led"}
     assert times["stage.analysis"]["self_ms"] <= times["stage.analysis"]["ms"]
     report = profiling.debug_report(pipe, spans=log)
     assert report["spans"] == times
@@ -124,12 +127,43 @@ def test_server_step_records_the_shared_stage_spans():
     with profiling.recording() as log:
         server.step()
     names = [s.name for s in log.spans()]
-    for name in ("server.hop", "stage.vqt", "stage.analysis", "stage.outputs", *ANALYSIS):
+    for name in ("server.hop", "stage.vqt", "stage.analysis", "stage.outputs", *ANALYSIS, "outputs.led"):
         assert names.count(name) == 1, names
     # the hop's spans share one call: the last call's stage times are the hop's
     times = profiling.call_times(log.last_call())
-    assert set(times) == {"server.hop", "stage.vqt", "stage.analysis", "stage.outputs", *ANALYSIS}
+    assert set(times) == {"server.hop", "stage.vqt", "stage.analysis", "stage.outputs", *ANALYSIS, "outputs.led"}
     assert times["server.hop"]["ms"] >= sum(times[n]["ms"] for n in ("stage.vqt", "stage.analysis", "stage.outputs"))
+
+
+def _stage_kwargs(stage):
+    """StreamingPipeline settings that run the output stage ``stage``
+    ("all": the three)."""
+    kw = {}
+    if stage in ("ml", "all"):
+        model = PitchMLP(input_bins=DEFAULT_T * SMALL_PARAMS.n_buckets, mlp_size=32, mlp_layers=1, device="cpu")
+        kw.update(ml_model=model, ml_params=model.state_dict())
+    if stage in ("led", "all"):
+        kw["with_led"] = True
+    if stage in ("viewer", "all"):
+        kw["with_viewer"] = True
+    return kw
+
+
+@pytest.mark.parametrize("stage", ["led", "viewer", "ml", "all"])
+def test_each_output_stage_records_its_span_inside_stage_outputs(stage):
+    pipe = StreamingPipeline(B, to_port(SMALL_PARAMS), path="pallas", device="cpu", **_stage_kwargs(stage))
+    with profiling.recording() as log:
+        pipe.step_multi(_chunks(), DT)
+    spans = log.spans()
+    outputs = [s for s in spans if s.name == "stage.outputs"]
+    want = OUTPUTS if stage == "all" else (f"outputs.{stage}",)
+    assert len(outputs) == K
+    for hop in outputs:  # one span a stage a hop, inside it, in the order the stages run
+        inside = [s for s in spans if s.parent == hop.index]
+        assert tuple(s.name for s in inside) == want
+        assert all(hop.start_ns <= s.start_ns <= s.end_ns <= hop.end_ns for s in inside)
+        assert all(a.end_ns <= b.start_ns for a, b in zip(inside, inside[1:]))
+    assert sum(s.name in OUTPUTS for s in spans) == K * len(want)
 
 
 def test_outputs_are_the_same_with_spans_on_and_off():
@@ -287,6 +321,7 @@ def test_trace_records_the_spans_as_ranges(tmp_path):
 
 
 def test_default_capacity_holds_a_traced_window():
-    # some 130 spans a call of 16 hops, up to some 450 calls in a 45-s window
-    assert profiling.SPAN_CAPACITY >= 450 * (16 * 8 + 2)
+    # some 150 spans an eager call of 16 hops (9 a hop with one output
+    # stage), up to some 450 calls in a 45-s window
+    assert profiling.SPAN_CAPACITY >= 450 * (16 * 9 + 2)
     assert profiling.SpanLog().capacity == profiling.SPAN_CAPACITY
