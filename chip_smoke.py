@@ -208,6 +208,16 @@ toolkit (nvcc). Phases, each of which fails the run on any error:
    call, a reset_stream, a rebuild and a per-stream dt, torch.equal to the
    eager path; and 8 streams of the replayed outputs against a pipeline on
    the CPU over 32 hops at test_hop_matches_jax's tolerances.
+14. replays the graph at the pv_viewer.capacity_12k cell's shape (12,288
+   viewer streams, 4 hops a call, 588 bins): three replays and the eager
+   call under set_sync_debug_mode("error"), torch.equal; the peak memory, a
+   call's device ms and the bytes a replay clones out of the graph.
+15. holds the viewer stage kernel (csrc/viewer.cu) against its plain version
+   at that cell's shape, on the analysis outputs of 8 hops of the cell's
+   pipeline, each kernel call under set_sync_debug_mode("error"): every leaf
+   torch.equal but the chroma vector (within the rtol its CPU test file
+   states); and times it (CUDA events, and the profiler on the card alone)
+   beside its bytes bound and the plain version's time.
 
 It prints a JSON line of the VQT's times by part, one of the analysis step's
 launches and times, one of the output stages' numbers, one of the ML phase's
@@ -220,7 +230,8 @@ each; the ``agc_signal`` entry's over the device route's files and the
 bench), one of the dataset phase's (``dataset``), one of the command line's
 (``cli``), one of the bench's (``bench``), one of the mesh's
 (``multigpu``; ``launches_by_path`` of every kernel gains ``multigpu``),
-one of the graph phase's (``graph``), then the nvidia-smi line, and as its last line ``{"ok": true, "device":
+one of the graph phase's (``graph``), one of the viewer cell's
+(``viewer_cell``), one of the viewer kernel's (``viewer_kernel``), then the nvidia-smi line, and as its last line ``{"ok": true, "device":
 {...}}``.
 Without CUDA it exits 1 and prints no result.
 """
@@ -251,6 +262,8 @@ CPU_B = 64  # the server on the card against one on the CPU
 CPU_HOPS = 8
 LOOP_S = 2.0
 STAGE_HOPS = 16  # phase 6: hops of the pipeline with the output stages
+STAGE_TRACE_CALLS = 10  # phase 6: calls of the output stages alone a profiler trace
+TRACE_PAD_S = 0.02  # idle host time at each end of a profiler trace's window
 ML_HOPS = 16  # phase 7: hops of the pipeline and of the server with the ML stage
 TRAIN_STEPS = 20  # phase 7: full-width train steps
 RENDER_STREAMS = 64  # phase 8: watched streams a batch (bench_render's default)
@@ -337,19 +350,25 @@ def device_trace(torch, fn, kernel: str | None = None, inner: int = 1, ops: list
     such kernel on the card alone. Without: (all events, their summed device
     time in ms). Appends (name, device ms) of each such event to ``ops`` if
     given. The profiler now and then records no device event of a window:
-    such a trace is taken again, up to three times in all. Fails if the
-    profiler saw no such event, or with ``required=False`` returns (0,
-    None)."""
+    such a trace is taken again, up to three times in all. The window holds
+    TRACE_PAD_S of idle host time before the first call and after the last
+    synchronisation, since the profiler drops a device event whose time,
+    put on the host's clock, falls outside its window. Fails if the
+    profiler saw no such event, naming what the last trace did hold, or
+    with ``required=False`` returns (0, None)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_PAD_S)
             for _ in range(inner):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.events()
+            time.sleep(TRACE_PAD_S)
+        traced = prof.events()
+        events = [e for e in traced
                   if e.device_type == torch.autograd.DeviceType.CUDA and (kernel is None or kernel in e.name)]
         if events:
             break
@@ -358,7 +377,11 @@ def device_trace(torch, fn, kernel: str | None = None, inner: int = 1, ops: list
     times_us = [e.device_time_total for e in events]
     if not times_us and not required:
         return 0, None
-    check(len(times_us) > 0, f"the profiler traced no device activity ({kernel or 'any kernel'})")
+    if not times_us:
+        device = sorted({e.name[:60] for e in traced if e.device_type == torch.autograd.DeviceType.CUDA})
+        launch = sum("LaunchKernel" in e.name for e in traced)
+        fail(f"the profiler traced no device activity ({kernel or 'any kernel'}): the last of three traces held "
+             f"{len(traced)} events, {launch} kernel launch calls on the host, device events {device[:8]}")
     total_ms = sum(times_us) / 1e3
     return len(times_us), total_ms / len(times_us) if kernel else total_ms
 
@@ -958,7 +981,9 @@ def output_stages_phase(torch, params, counts, reset_counts, gen) -> tuple[dict,
 
     profile = {}
     for label, kw in (("both", {}), ("led", dict(with_viewer=False)), ("viewer", dict(with_led=False))):
-        launches, device_ms = max(device_trace(torch, lambda: stages(**kw)) for _ in range(3))
+        # STAGE_TRACE_CALLS calls a trace, read as their mean a call
+        launches, device_ms = (x / STAGE_TRACE_CALLS for x in max(
+            device_trace(torch, lambda: stages(**kw), inner=STAGE_TRACE_CALLS) for _ in range(3)))
         enqueue, wall = [], []
         for _ in range(5):
             torch.cuda.synchronize()
@@ -969,8 +994,8 @@ def output_stages_phase(torch, params, counts, reset_counts, gen) -> tuple[dict,
             wall.append((time.perf_counter() - t) * 1e3)
         profile[label] = dict(launches=launches, device_ms=device_ms, enqueue_ms=float(np.median(enqueue)),
                               wall_ms=float(np.median(wall)))
-    print(f"output stages alone at B={B} (derived_stages; launches and device ms from the profiler, enqueue and "
-          f"wall ms by the host clock): {json.dumps(profile)}")
+    print(f"output stages alone at B={B} (derived_stages; launches and device ms a call from the profiler over "
+          f"{STAGE_TRACE_CALLS} calls, enqueue and wall ms by the host clock): {json.dumps(profile)}")
 
     # (c) one hop with the stages under set_sync_debug_mode("error")
     torch.cuda.synchronize()
@@ -3379,15 +3404,16 @@ def graph_phase(torch) -> dict:
     want_counts = {"graph_captures": 1, "graph_replays": GRAPH_CALLS, "graph_eager_calls": 1,
                    "graph_state_stagings": 1, "graph_output_bytes": GRAPH_CALLS * nbytes(cpu_rows[0][0])}
     check(pipe.graph_counts == want_counts, f"graph counters {pipe.graph_counts}, expected {want_counts}")
-    # the VQT, peaks and ring push launches of both pipelines' calls: a
-    # capture counts none, a replay its 16 hops'
+    # the VQT, peaks, ring push and viewer stage launches of both pipelines'
+    # calls (an LED cell: no viewer stage): a capture counts none, a replay
+    # its 16 hops'
     counted = tuple(a - b for a, b in zip(launch_counts(), before))
-    want = tuple(2 * (1 + GRAPH_CALLS) * GRAPH_K * n for n in (1, 2, 1))
+    want = tuple(2 * (1 + GRAPH_CALLS) * GRAPH_K * n for n in (1, 2, 1, 0))
     check(counted == want, f"graph: launch counters moved by {counted}, expected {want}")
     numbers["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     print(f"graph at the capacity cell's shape (B={GRAPH_B}, K={GRAPH_K}, LED): {1 + GRAPH_CALLS} calls over two "
           f"banks torch.equal to pipeline_step_multi in state and every output leaf, each call's outputs unchanged "
-          f"after the last; counters {pipe.graph_counts}; launch counters (vqt, peaks, agc) {counted}; peak device memory {numbers['peak_gib']:.2f} GiB "
+          f"after the last; counters {pipe.graph_counts}; launch counters (vqt, peaks, agc, viewer) {counted}; peak device memory {numbers['peak_gib']:.2f} GiB "
           f"(two pipelines, the kept outputs)")
 
     # (b) a replay under sync-debug, and under the profiler
@@ -3591,6 +3617,118 @@ def viewer_cell_phase(torch) -> dict:
     del pipe
     torch.cuda.empty_cache()
     return numbers
+
+
+VIEWER_KERNEL_HOPS = 8  # phase 15: hops of the viewer cell's pipeline the kernel is held on
+VIEWER_CHROMA_RTOL = 1e-5  # tests/test_torch_viewer_stage.py::CHROMA_RTOL: the sums add in another order
+
+
+def viewer_stage_bytes(b: int, n: int, n_segments: int) -> int:
+    """Bytes the viewer stage must move: each input read once (the peak
+    mask, four analysis rows, the ball carry of 8 floats a bin, the scene
+    calmness and the frame time) and each output written once (the new
+    carry, positions, visibility, the u8 row, the contour's heights and
+    segment colours, the bass spiral, chroma, bloom)."""
+    read = b * n * (1 + 4 * 4 + 8 * 4) + 2 * b * 4
+    written = b * n * (8 * 4 + 3 * 4 + 1 + 4 + 4) + b * (n - 1) * 3 * 4 + b * (n_segments + 4 * 4 + 12 * 4 + 4)
+    return read + written
+
+
+def viewer_kernel_phase(torch) -> dict:
+    """Phase 15: the viewer stage kernel at the pv_viewer.capacity_12k cell's
+    shape (12,288 streams, VqtParameters(): 588 bins). For each of
+    VIEWER_KERNEL_HOPS eager hops of the cell's pipeline, viewer_stage (the
+    kernel, under set_sync_debug_mode("error")) and viewer_stage_plain run
+    on that hop's analysis outputs and the carry before it: every leaf of
+    the outputs and of the new carry torch.equal but the chroma vector
+    (VIEWER_CHROMA_RTOL), and the kernel's outputs equal to what the hop
+    itself returned. Then its time a call (CUDA events) and on the card
+    alone (profiler) beside its bytes bound, and the plain version's time.
+    Returns its numbers."""
+    import dataclasses
+
+    from pitchvis_tpu_torch import StreamingPipeline, VqtParameters
+    from pitchvis_tpu_torch.models.viewer import bass_cylinder_count
+    from pitchvis_tpu_torch.ops import viewer_stage as vs
+
+    params = VqtParameters()
+    rng_cfg = params.range
+    b, n = VIEWER_CELL_B, params.n_buckets
+    hop = int(params.sr / 60.0)
+    dt = hop / params.sr
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    audio = synthetic_audio(torch, b, VIEWER_KERNEL_HOPS * hop, params.sr, gen)
+    audio[31::32] = 0.0  # one stream in 32 silent, as in the cell
+    pipe = StreamingPipeline(b, params, path="pallas", fast=False, with_viewer=True, device="cuda")
+    dt_b = torch.full((b,), dt, dtype=torch.float32, device="cuda")
+
+    def flat(tree, prefix):
+        if isinstance(tree, torch.Tensor):
+            return {prefix: tree}
+        out = {}
+        for f in dataclasses.fields(tree):
+            out.update(flat(getattr(tree, f.name), f"{prefix}.{f.name}"))
+        return out
+
+    worst_chroma, peaks_seen = 0.0, 0
+    for h in range(VIEWER_KERNEL_HOPS):
+        carry = pipe.state.balls
+        out = pipe.step(audio[:, h * hop : (h + 1) * hop], dt)
+        peaks_seen += int(out.analysis.peaks.sum())
+        torch.cuda.synchronize()
+        before = vs.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, view = vs.viewer_stage(rng_cfg, carry, out.analysis, dt_b)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(vs.launches == before + 1, "viewer kernel: a CUDA tensor did not reach the kernel")
+        want_state, want = vs.viewer_stage_plain(rng_cfg, carry, out.analysis, dt_b)
+        got = {**flat(view, "viewer"), **flat(state, "state")}
+        expected = {**flat(want, "viewer"), **flat(want_state, "state")}
+        hop_out = {**flat(out.viewer, "viewer"), **flat(pipe.state.balls, "state")}
+        bad = []
+        for name, w in expected.items():
+            g = got[name]
+            check(g.dtype == w.dtype and g.shape == w.shape, f"viewer kernel: {name} {g.dtype} {tuple(g.shape)}")
+            check(bool(torch.equal(g, hop_out[name])), f"viewer kernel: {name} differs from the hop's own, hop {h}")
+            if name == "viewer.chroma":
+                rel = float(((g - w).abs() / w.abs().clamp_min(1e-30)).max())
+                worst_chroma = max(worst_chroma, rel)
+                if not torch.allclose(g, w, rtol=VIEWER_CHROMA_RTOL, atol=0.0):
+                    bad.append(f"{name}: relative {rel:.3e}")
+                continue
+            diff = g != w
+            if bool(diff.any()):
+                idx = diff.nonzero()[0].tolist()
+                bad.append(f"{name}: {int(diff.sum())} of {w.numel()} values, first at {idx}: "
+                           f"{g[tuple(idx)].item()!r} against {w[tuple(idx)].item()!r}")
+        check(not bad, f"viewer kernel differs from viewer_stage_plain at hop {h}: " + "; ".join(bad))
+    print(f"viewer kernel at the viewer cell's shape (B={b}, n={n}): {VIEWER_KERNEL_HOPS} hops of the cell's pipeline "
+          f"({peaks_seen / (VIEWER_KERNEL_HOPS * b):.2f} peaks a stream-hop), each call under "
+          f"set_sync_debug_mode(\"error\"), every output and carry leaf torch.equal to viewer_stage_plain but the "
+          f"chroma (max relative {worst_chroma:.3e}, rtol {VIEWER_CHROMA_RTOL}), and to the hop's own outputs")
+
+    analysis = out.analysis
+    carry = pipe.state.balls
+    ms = time_ms(torch, lambda: vs.viewer_stage(rng_cfg, carry, analysis, dt_b))
+    plain_ms = time_ms(torch, lambda: vs.viewer_stage_plain(rng_cfg, carry, analysis, dt_b), reps=3, inner=2)
+    _, card_ms = device_trace(torch, lambda: vs.viewer_stage(rng_cfg, carry, analysis, dt_b),
+                              kernel="viewer_stage_kernel", inner=20)
+    n_plain, plain_device_ms = device_trace(torch, lambda: vs.viewer_stage_plain(rng_cfg, carry, analysis, dt_b))
+    moved = viewer_stage_bytes(b, n, bass_cylinder_count(rng_cfg.octaves))
+    b_ms, b_by = bound_ms(moved, 0.0, F32_FLOPS)
+    print(f"viewer kernel at B={b}, n={n}: {ms:.4f} ms a call, {card_ms:.4f} on the card alone "
+          f"({100 * b_ms / card_ms:.1f}% of its bound); plain {plain_ms:.4f} ms a call ({n_plain} device ops, "
+          f"{plain_device_ms:.4f} device ms); bound {b_ms:.4f} ms ({b_by}: {moved / 1e9:.3f} GB); no single PyTorch "
+          f"call computes the same function (library none)")
+    del pipe, out, analysis, carry, state, view, want_state, want, audio
+    torch.cuda.empty_cache()
+    return dict(name="viewer", route="cuda", source="pitchvis_tpu_torch/csrc/viewer.cu",
+                replaces="pitchvis_tpu/models/viewer.py (update_balls, chroma_vector, bloom_intensity, "
+                         "spectrogram_row_vqt, bass_spiral, calmness_histogram; XLA-fused, no Pallas kernel)",
+                max_chroma_rel=worst_chroma, ms=ms, card_ms=card_ms, plain_ms=plain_ms,
+                plain_device_ops=n_plain, plain_device_ms=plain_device_ms, bound_ms=b_ms, bound_by=b_by, bytes=moved)
 
 
 def main() -> None:
@@ -4135,6 +4273,9 @@ def main() -> None:
     # ---- 14. the viewer cell's shape ----------------------------------------------------
     viewer_cell_numbers = viewer_cell_phase(torch)
 
+    # ---- 15. the viewer stage kernel --------------------------------------------------
+    kernels["viewer"] = viewer_kernel_phase(torch)
+
     print(json.dumps({"vqt_times": vqt_times}))
     print(json.dumps({"analysis_step": analysis_profile}))
     print(json.dumps({"output_stages": stage_numbers}))
@@ -4146,7 +4287,8 @@ def main() -> None:
     print(json.dumps({"multigpu": mesh_numbers}))
     print(json.dumps({"graph": graph_numbers}))
     print(json.dumps({"viewer_cell": viewer_cell_numbers}))
-    print(json.dumps({"kernels": [kernels[n] for n in order]}))
+    print(json.dumps({"viewer_kernel": kernels["viewer"]}))
+    print(json.dumps({"kernels": [kernels[n] for n in (*order, "viewer")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
 

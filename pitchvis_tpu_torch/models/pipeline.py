@@ -11,8 +11,9 @@ window, the VQT in dB (the fused VQT kernel on ``path="pallas"``), the
 batched analysis step (two launches of the peaks kernel) and, when asked
 for, the stages after it (:func:`derived_stages`): the ML inference on a
 rolling history of smoothed spectra (models/ml_system.py), the LED color
-block (io/led.py) and every display-derived quantity of the reference's
-update_display (models/viewer.py), in plain PyTorch.
+block (io/led.py), in plain PyTorch, and every display-derived quantity
+of the reference's update_display (models/viewer.py; on a card one kernel
+a hop, ops/viewer_stage.py).
 """
 
 from __future__ import annotations
@@ -27,25 +28,14 @@ from ..core.config import AgcParameters, AnalysisParameters, VqtParameters
 from ..core.device import resolve_device
 from ..io.led import led_frame_values
 from ..kernel.builder import get_kernel
-from ..ops import agc, peaks_pallas, vqt_pallas
+from ..ops import agc, peaks_pallas, viewer_stage, vqt_pallas
 from ..ops.vqt import make_vqt_arrays, vqt_db_auto
 from ..stream.ring import RingState, ring_push, ring_window
 from ..utils.profiling import annotate
 from .analysis import AnalysisOutputs, AnalysisState, analysis_step_batch, dt_batch, init_state_batch
 from .ml_system import MlState, init_ml_state_batch, ml_step_batch, serving_copy
 from .pitch_mlp import DEFAULT_T
-from .viewer import (
-    BallOutputs,
-    BallState,
-    BassSpiralOutputs,
-    CalmnessHistogramOutputs,
-    bass_spiral,
-    bloom_intensity,
-    calmness_histogram,
-    chroma_vector,
-    spectrogram_row_vqt,
-    update_balls,
-)
+from .viewer import BallState, ViewerOutputs
 
 
 def build_rebuilt_arrays(old_params, new_params, *, max_n_fft: int, path: str,
@@ -116,19 +106,6 @@ class PipelineState:
     ml: MlState | None = None
     # per-stream pitch-ball fade carry of the viewer stage; None without it
     balls: BallState | None = None
-
-
-@dataclass
-class ViewerOutputs:
-    """Display-derived quantities of the reference's update_display pass
-    (models/viewer.py), per stream."""
-
-    balls: BallOutputs  # per-bin ball position/rgba/scale/visibility
-    chroma: torch.Tensor  # (B, 12) C4-referenced pitch-class power
-    bloom: torch.Tensor  # (B,) bloom intensity = clamp(1.3*scene_calmness)
-    spectrogram_row: torch.Tensor  # (B, n_buckets, 4) RGBA8 VQT-mode row
-    bass: BassSpiralOutputs  # spiral coloring up to the lowest peak
-    calmness_histogram: CalmnessHistogramOutputs  # debug-overlay contour
 
 
 @dataclass
@@ -207,18 +184,7 @@ def derived_stages(
                     "with_viewer=True needs the ball carry (init_pipeline_state(with_viewer=True))"
                 )
             with annotate("outputs.viewer"):
-                new_balls, ball_out = update_balls(
-                    rng_cfg, balls_state, outputs.peaks, outputs.peak_center, outputs.peak_size,
-                    outputs.calmness, outputs.pitch_accuracy, outputs.pitch_deviation, dt_b,
-                )
-                viewer = ViewerOutputs(
-                    balls=ball_out,
-                    chroma=chroma_vector(outputs.x_vqt_smoothed, rng_cfg),
-                    bloom=bloom_intensity(outputs.scene_calmness),
-                    spectrogram_row=spectrogram_row_vqt(rng_cfg, outputs.x_vqt_smoothed),
-                    bass=bass_spiral(rng_cfg, outputs.peaks, outputs.peak_center, outputs.peak_size),
-                    calmness_histogram=calmness_histogram(outputs.calmness),
-                )
+                new_balls, viewer = viewer_stage.viewer_stage(rng_cfg, balls_state, outputs, dt_b)
         return new_ml, ml_midi, led, new_balls, viewer
 
 
@@ -336,7 +302,8 @@ GRAPH_COUNTERS = ("graph_captures", "graph_replays", "graph_eager_calls", "graph
 GRAPHS_KEPT = 4
 # the module counters of the hand-written kernels' launches in a hop (each
 # wrapper counts one as it launches)
-_LAUNCH_COUNTERS = ((vqt_pallas, "launches"), (peaks_pallas, "launches"), (agc, "launches"))
+_LAUNCH_COUNTERS = ((vqt_pallas, "launches"), (peaks_pallas, "launches"), (agc, "launches"),
+                    (viewer_stage, "launches"))
 
 
 def _launch_counts() -> tuple:

@@ -449,6 +449,20 @@ def calmness_histogram(calmness: torch.Tensor) -> CalmnessHistogramOutputs:
     return CalmnessHistogramOutputs(heights=heights, segment_rgb=calmness_to_color(mid))
 
 
+@dataclass
+class ViewerOutputs:
+    """Display-derived quantities of the reference's update_display pass,
+    per stream (ops/viewer_stage.py::viewer_stage computes them in one
+    go)."""
+
+    balls: BallOutputs  # per-bin ball position/rgba/scale/visibility
+    chroma: torch.Tensor  # (B, 12) C4-referenced pitch-class power
+    bloom: torch.Tensor  # (B,) bloom intensity = clamp(1.3*scene_calmness)
+    spectrogram_row: torch.Tensor  # (B, n_buckets, 4) RGBA8 VQT-mode row
+    bass: BassSpiralOutputs  # spiral coloring up to the lowest peak
+    calmness_histogram: CalmnessHistogramOutputs  # debug-overlay contour
+
+
 def _at(index: torch.Tensor, length: int) -> torch.Tensor:
     """(B, length) mask of position ``index[b]`` in each row: a write at a
     device index as a select, with no host synchronisation."""

@@ -39,6 +39,9 @@ EXTRA_FLAGS: dict[str, list[str]] = {
     # the blend rounds each product, difference and sum on its own, in the
     # plain version's order
     "composite": ["-fmad=false"],
+    # the viewer stage rounds each operation on its own, in the order of the
+    # plain version's PyTorch kernels
+    "viewer": ["-fmad=false"],
     # an empty kernel, for timing what a launch costs (no path calls it)
     "launch_floor": [],
 }

@@ -237,9 +237,11 @@ def run_replays(device, variant, calls=5):
         kept.append((out, _snapshot(out)))
     for call, (out, snap) in enumerate(kept):
         _assert_equal(out, snap, f"{variant}: the outputs of call {call} after the last call")
-    # the kernels a hop launches (none on the CPU), in both pipelines'
-    # calls: a capture counts none, a replay all of its hops'
-    per_hop = (1, 2, 1) if device == "cuda" else (0, 0, 0)
+    # the kernels a hop launches (VQT, peaks, ring push, viewer stage; none
+    # on the CPU), in both pipelines' calls: a capture counts none, a replay
+    # all of its hops'
+    viewer = int(VARIANTS[variant].get("with_viewer", False))
+    per_hop = (1, 2, 1, viewer) if device == "cuda" else (0, 0, 0, 0)
     counted = tuple(a - b for a, b in zip(pipeline._launch_counts(), launches))
     assert counted == tuple(2 * calls * K * n for n in per_hop), f"{variant}: launches {counted}"
     return pipe.graph_counts, [pipeline._nbytes(out) for out, _ in kept]
@@ -281,10 +283,10 @@ def test_replay_logic_on_the_cpu(monkeypatch, variant):
 def test_captures_count_no_launch_and_replays_count_theirs(monkeypatch):
     """The kernels' wrappers count a launch as they record it in a capture,
     and a replay runs no wrapper: the capture takes back what it counted,
-    and each replay adds it (a stand-in capture that counts (1, 2, 1))."""
+    and each replay adds it (a stand-in capture that counts (1, 2, 1, 1))."""
 
     def counting_record(fn, device):
-        pipeline._add_launch_counts((1, 2, 1))
+        pipeline._add_launch_counts((1, 2, 1, 1))
         return _rerun_record(fn, device)
 
     monkeypatch.setattr(pipeline, "_replays_on", lambda device: True)
@@ -296,7 +298,7 @@ def test_captures_count_no_launch_and_replays_count_theirs(monkeypatch):
     assert pipeline._launch_counts() == before
     for _ in range(3):
         pipe.step_multi(bank, DT)
-    assert tuple(a - b for a, b in zip(pipeline._launch_counts(), before)) == (3, 6, 3)
+    assert tuple(a - b for a, b in zip(pipeline._launch_counts(), before)) == (3, 6, 3, 3)
 
 
 def test_pipeline_keeps_the_most_recently_used_graphs(monkeypatch):
